@@ -3,7 +3,7 @@
 // The reference's host layer is native Rust (tobj OBJ parsing in
 // src/geometry/mesh.rs, the BVH build in src/scene/bvh/tree.rs, PPM
 // serialization in src/scene/render_ppm.rs); this is the C++ equivalent for
-// the TPU framework — the Python implementations remain as portable
+// this framework — the Python implementations remain as portable
 // fallbacks and behavioral oracles (rt/scene/objloader.py, rt/scene/bvh.py,
 // rt/render/ppm.py), and tests assert byte/bit equality between the two.
 //

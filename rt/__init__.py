@@ -1,8 +1,7 @@
-"""rt — a TPU-native differentiable path tracer (JAX / Pallas / pjit).
+"""rt — a differentiable path tracer in JAX, with Pallas GPU kernels.
 
 A from-scratch reimplementation of the capabilities of
-hucancode/hello-raytracing (Rust + wgpu + WGSL, see /root/reference), designed
-TPU-first:
+hucancode/hello-raytracing (Rust + wgpu + WGSL):
 
 - ``rt.core``    pure-JAX, vmap-able, differentiable math: RNG, camera rays,
                  sphere / triangle intersection, material scatter, sky, the
@@ -10,7 +9,8 @@ TPU-first:
 - ``rt.scene``   host-side scene construction: OBJ loading, BVH build,
                  the 7 app scenes + deterministic test scenes.
                  (replaces src/scene/*, src/geometry/*)
-- ``rt.kernels`` fused Pallas TPU kernels for the hot render path.
+- ``rt.kernels`` fused Pallas kernels (Triton route) for the hot render
+                 path.
 - ``rt.render``  the jit-compiled render graph + progressive accumulation
                  state + PPM I/O.  (replaces src/renderer.rs, render_ppm.rs)
 - ``rt.dist``    device-mesh sharding of the image plane, multi-host helpers,

@@ -3,7 +3,7 @@
 The reference hardcodes all knobs as WGSL ``const`` / Rust ``const``
 (src/shaders/shader_sphere.wgsl:10-12, shader_tris.wgsl:11-13,
 src/renderer.rs:18, src/scene/scene_sphere.rs:15, src/scene/scene_tris.rs:11-12).
-The TPU-idiomatic replacement is a frozen dataclass whose fields are
+The replacement is a frozen dataclass whose fields are
 jit-static arguments: every field participates in the compilation cache key,
 exactly like a shader recompile in the reference.
 """
@@ -50,11 +50,8 @@ class RenderConfig:
         incident direction before reflecting (shader_sphere.wgsl:180); the
         tris shader does not (shader_tris.wgsl:230).
     backend      — "jax" (pure-JAX oracle, runs anywhere) or "pallas"
-                   (TPU kernels: fused whole-frame kernel for spheres,
-                   wavefront per-bounce kernels with coherence-sorted ray
-                   streams for triangle scenes).  "pallas_mono" forces the
-                   single-launch triangle kernel (A/B baseline);
-                   "pallas_wave" is an alias of "pallas".
+                   (the fused whole-frame GPU kernels of rt.kernels, for
+                   sphere and triangle scenes).
     """
 
     width: int = 512
@@ -89,8 +86,8 @@ class RenderConfig:
     # EXACT transport (rt/grad, tests/test_grad.py geometry tests).
     sky_from_final_dir: bool = False
     # Run the Pallas kernels in interpret mode (CPU-executable reference
-    # semantics) — lets the pallas backends be driven end-to-end off-TPU
-    # (CLI --interpret, CPU tests).  No effect on the "jax" backend.
+    # semantics) — lets the pallas backends be driven end-to-end on the
+    # CPU (CLI --interpret, CPU tests).  No effect on the "jax" backend.
     interpret: bool = False
 
     @staticmethod

@@ -1,9 +1,9 @@
 """Material scatter — masked lane-parallel replica of the WGSL ``scatter``
 switch (shader_sphere.wgsl:172-217 / shader_tris.wgsl:222-267).
 
-TPU-first design: no data-dependent branches.  All three material programs are
-evaluated on every lane and the results selected with ``jnp.where`` — the
-idiomatic VPU form of SIMT divergence.
+Array design: no data-dependent branches.  All three material programs are
+evaluated on every lane and the results selected with ``jnp.where`` — SIMT
+divergence written as masked selects.
 
 RNG-stream exactness (required for golden parity at 1 spp):
 

@@ -10,8 +10,8 @@ Light transport replicated exactly:
   evaluated on the original camera-ray direction, which in the sphere shader
   is unnormalized (|dir| ~ focal_length) — extrapolation is intentional.
 
-TPU-first: the loop is a ``lax.fori_loop`` with per-lane active masks
-(the VPU analog of SIMT divergence), usable unchanged inside Pallas kernels
+The loop is a ``lax.fori_loop`` with per-lane active masks (SIMT
+divergence as masked selects), usable unchanged inside Pallas kernels
 and differentiable when unrolled via ``lax.scan`` (see rt.grad).
 """
 

@@ -163,10 +163,9 @@ def intersect_all_bvh(scene: TriangleScene, origin, direction):
 
 
 def intersect_all_bruteforce(scene: TriangleScene, origin, direction):
-    """TPU speed path: closest-hit by scanning every triangle (no BVH, no
-    600-step cap).  Same closest hit as the walk except tie-order and the
-    cap's truncation; used by the Pallas kernels where the linear scan
-    vectorizes perfectly over VPU lanes / MXU tiles.
+    """Closest hit by scanning every triangle (no BVH, no 600-step cap).
+    Same closest hit as the walk except tie-order and the cap's truncation
+    — the semantics the chunk-scanning Pallas kernels implement.
     """
     def body(k, carry):
         best_t, best_i = carry

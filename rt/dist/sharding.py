@@ -2,7 +2,7 @@
 
 The reference is a single-process, single-GPU program (a lone wgpu queue,
 src/renderer.rs:52-134); its only parallelism is one fragment-shader thread
-per pixel.  The TPU-native scaling design (SURVEY.md §2 parallelism table):
+per pixel.  The scaling design (SURVEY.md §2 parallelism table):
 
 - **image-plane tile sharding** = the DP axis: the (H, W, 3) accumulator and
   every per-pixel intermediate are sharded by pixel rows across a 1-D
@@ -10,17 +10,18 @@ per pixel.  The TPU-native scaling design (SURVEY.md §2 parallelism table):
   camera are replicated.  Ray generation is position-based (iota + per-pixel
   RNG seeded from (x, y) — rt/core/camera.py), so XLA's SPMD partitioner
   splits the whole render graph spatially with **zero per-frame collectives**:
-  each chip traces only its rows and accumulates into its shard.
-- cross-chip communication happens in exactly two places, both over ICI:
+  each device traces only its rows and accumulates into its shard.
+- cross-device communication happens in exactly two places (NVLink
+  between the GPUs of one host):
   (1) final image assembly (an all-gather performed lazily on readback or
   explicitly via :func:`gather_image`), and (2) parameter-gradient psum in
   the differentiable path (rt/grad — inserted automatically by XLA when the
   scalar loss is reduced over the sharded pixel axis).
 - multi-host: :func:`multihost_init` wraps ``jax.distributed.initialize``;
-  the same NamedShardings then span hosts (DCN between hosts, ICI within).
+  the same NamedShardings then span hosts.
 
-No NCCL/MPI analog is needed — XLA collectives over the mesh are the
-communication backend.
+XLA collectives over the mesh are the communication backend (NCCL on
+GPUs); nothing here calls a collective by hand.
 """
 
 from __future__ import annotations
@@ -102,7 +103,7 @@ def gather_image(state: RenderState) -> jnp.ndarray:
 def sample_sharded_render(mesh: Mesh, axis_name: str = AXIS):
     """Sample-dimension parallelism (the TP/SP analog from SURVEY.md §2):
     every device traces the FULL frame at a different RNG time uniform and
-    the results are averaged with one ``psum`` over ICI — a parallel version
+    the results are averaged with one ``psum`` — a parallel version
     of the progressive loop's uniform average (EMA weights before
     saturation), for converged-render throughput.
 
@@ -135,10 +136,10 @@ def sample_sharded_render(mesh: Mesh, axis_name: str = AXIS):
 def multihost_init(coordinator_address: Optional[str] = None,
                    num_processes: Optional[int] = None,
                    process_id: Optional[int] = None) -> None:
-    """Join a multi-host slice (DCN process group + ICI collectives).
+    """Join a multi-host process group (``jax.distributed``).
 
-    No-op single-host; call before any jax op on multi-host pods.  Mirrors
-    the role NCCL/MPI init would play in a GPU framework.
+    No-op single-host; call before any jax op on a multi-host run.  XLA's
+    collectives (NCCL on GPUs) then span every process's devices.
     """
     if num_processes is None or num_processes <= 1:
         return

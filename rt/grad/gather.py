@@ -1,24 +1,21 @@
-"""MXU row gather — one-hot matmul replacement for XLA's element gathers.
+"""One-hot matmul row gather — an alternative to XLA's element gathers.
 
-XLA-on-TPU lowers ``table[idx]`` / ``jnp.take`` to element-granularity
-gathers, measured ~30x slower than streaming the same data through the
-matrix/vector units (PERF.md); the path-replay train step does ~26M of them
-per iteration, and the backward pass turns each into a scatter-add, which is
-worse.  For the small tables the replay graph reads (<=1K spheres/triangles,
-<=1K materials) the TPU-native move is a one-hot matmul:
+The path-replay train step gathers one table row per pixel and bounce, and
+the backward pass turns each gather into a scatter-add.  For the small
+tables the replay graph reads (<=1K spheres/triangles, <=1K materials) the
+gather can instead be a one-hot matmul:
 
-    gathered = one_hot(idx, N) @ table        # (P, N) @ (N, C) on the MXU
+    gathered = one_hot(idx, N) @ table        # (P, N) @ (N, C)
 
 whose transpose — the gradient scatter-add onto the table — is ALSO a
-matmul (``one_hot.T @ g``), so both directions ride the MXU.
+matmul (``one_hot.T @ g``).  Whether it beats ``jnp.take`` depends on the
+device; chip_smoke.py times both (``gather_mode="onehot"`` vs ``"take"``).
 
 Exactness: every one-hot row holds a single 1.0; all other products are
-exact zeros and the single surviving product is ``1.0 * x``.  Under
-``Precision.HIGHEST`` the TPU's f32 matmul (3-pass bf16 decomposition)
-reconstructs ``x`` exactly because 1.0 is bf16-representable and the passes
-sum x's exact bf16 split back together — the result is bit-equal to
-``table[idx]`` (asserted in tests/test_replay.py; the on-chip parity print
-lives in tools/exp_replay_tpu.py).
+exact zeros and the single surviving product is ``1.0 * x``.  The matmul
+asks for ``Precision.HIGHEST``, so no reduced-precision (bf16/TF32) pass
+can round ``x`` — the result is bit-equal to ``table[idx]`` (asserted in
+tests/test_replay.py).
 
 The pixel stream is processed in row blocks via ``lax.map`` so the one-hot
 operand stays a few MB instead of P x N materialized at once.
@@ -31,8 +28,7 @@ import jax.numpy as jnp
 
 # Tables wider than this fall back to XLA's native gather: the one-hot
 # operand (block x N) and its O(P*N) matmul zeros stop paying for themselves
-# once the table no longer fits a few MXU passes (lucy/dragon triangle
-# tables are 20K-50K rows).
+# on large tables (lucy/dragon triangle tables are 20K-50K rows).
 MAX_ONEHOT_ROWS = 4096
 
 
@@ -52,8 +48,7 @@ def gather_rows(table: jnp.ndarray, idx: jnp.ndarray, *,
     under a one-hot operand), and the selected rows' NaN/±Inf entries are
     reconstructed afterwards.  For all-finite tables the value columns are
     bit-identical to the unguarded matmul (same dot, same order); the extra
-    mask columns ride the same MXU pass (C stays well under one 128-lane
-    tile)."""
+    mask columns ride the same matmul."""
     n, c = table.shape
     flat = idx.reshape(-1).astype(jnp.int32)
     p = flat.shape[0]
@@ -94,7 +89,7 @@ def gather_rows(table: jnp.ndarray, idx: jnp.ndarray, *,
 
 def gather_rows_auto(table: jnp.ndarray, idx: jnp.ndarray, mode: str = "auto",
                      *, block: int = 32768) -> jnp.ndarray:
-    """Policy wrapper: ``"onehot"`` forces the MXU path, ``"take"`` the XLA
+    """Policy wrapper: ``"onehot"`` forces the matmul path, ``"take"`` the XLA
     gather, ``"auto"`` picks onehot for tables up to MAX_ONEHOT_ROWS."""
     if mode == "take" or (mode == "auto" and table.shape[0] > MAX_ONEHOT_ROWS):
         return table[idx]

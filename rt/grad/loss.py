@@ -11,7 +11,7 @@ def image_mse(rendered: jnp.ndarray, target: jnp.ndarray) -> jnp.ndarray:
     gradient is sign(), MSE's is smooth, so MSE optimizes and MAE validates).
 
     Under pjit with the image row-sharded, this mean is the one spot XLA
-    inserts a cross-chip psum — the gradient all-reduce over ICI.
+    inserts a cross-device psum — the gradient all-reduce.
     """
     d = rendered - target
     return jnp.mean(d * d)

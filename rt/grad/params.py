@@ -1,7 +1,7 @@
 """Differentiable parameter pytrees for inverse rendering.
 
 The reference has no gradient story at all (Rust + WGSL forward only); this
-subsystem is new TPU-native capability: recover camera / material / geometry
+subsystem is new capability: recover camera / material / geometry
 parameters from a golden render by gradient descent (BASELINE.json config 5).
 
 Design: parameters live in small pytrees (`CameraParams`, `SphereParams`)

@@ -1,5 +1,5 @@
-"""Path-replay backprop — the TPU-fast differentiable path (VERDICT r1
-item 3 / BASELINE config 5).
+"""Path-replay backprop — the fast differentiable path (BASELINE
+config 5).
 
 The expensive part of the forward render is FINDING the hits (intersection
 scans / chunk-culled traversal), but the hit decisions are discrete and
@@ -82,40 +82,25 @@ def record_hits_oracle(scene, camera, config: RenderConfig, time):
 
 
 def record_hits_pallas(scene, camera, config: RenderConfig, time,
-                       interpret: bool = False, tris_backend: str = "auto"):
+                       interpret: bool = False):
     """(color (H,W,3), hits (bounces,H,W) i32 scene-order ids) via the
-    recording Pallas kernels — the fast device recorder.
-
-    tris_backend: "mono" (single-launch recorder), "wave" (sorted-stream
-    recorder — the one that makes lucy/dragon-scale meshes recordable), or
-    "auto" (wave above the same 8192-triangle threshold the render dispatch
-    uses).
-
-    Works both eagerly (as fit_replay calls it) and under an outer
-    jax.jit: r4 re-verified dragon 512x512 under jit bit-equal to eager
-    (tools/exp_record_jit.py; eager 0.42 s).  The r3 VMEM OOM under an
-    outer jit disappeared with the scatter->inverse-sort restore rework —
-    the element scatters were what XLA scope-allocated."""
-    from rt.kernels.dispatch import (_round_up, pack_camera,
+    recording Pallas kernels — the fast device recorder.  Works both
+    eagerly (as fit_replay calls it) and under an outer jax.jit."""
+    from rt.kernels.dispatch import (TRIS_UNROLL, block_grid, pack_camera,
                                      pack_spheres_table)
     from rt.config import MAT_DIELECTRIC, MAT_METAL
 
     h, w = config.height, config.width
-    th = min(16, _round_up(h, 8))
-    tw = min(256, _round_up(w, 128))
-    hp, wp = _round_up(h, th), _round_up(w, tw)
     cam_row = pack_camera(camera)
     time_arr = jnp.asarray(time, jnp.uint32).reshape(1, 1)
     has_metal = MAT_METAL in config.mat_kinds
     has_dielectric = MAT_DIELECTRIC in config.mat_kinds
-    common = dict(height=h, width=w, height_pad=hp, width_pad=wp,
-                  bounces=config.bounces,
+    common = dict(height=h, width=w, bounces=config.bounces,
                   normalize_defocus_dir=config.normalize_defocus_dir,
                   normalize_reflect_in=config.normalize_reflect_in,
-                  th=th, tw=tw, has_metal=has_metal,
-                  has_dielectric=has_dielectric,
+                  has_metal=has_metal, has_dielectric=has_dielectric,
                   sky_from_final_dir=config.sky_from_final_dir,
-                  interpret=interpret)
+                  interpret=interpret, **block_grid(h, w))
 
     if isinstance(scene, sphere_mod.SphereArray):
         from rt.kernels.sphere_kernel import render_color_spheres_record
@@ -123,19 +108,12 @@ def record_hits_pallas(scene, camera, config: RenderConfig, time,
         if 0 < config.n_active_spheres < n:
             n = config.n_active_spheres
         color, idx = render_color_spheres_record(
-            tab, kinds, cam_row, time_arr, n_spheres=n,
-            table_in_vmem=tab.shape[0] > 128, **common)
+            tab, kinds, cam_row, time_arr, n_spheres=n, **common)
     else:
-        if tris_backend == "auto":
-            tris_backend = "wave" if scene.m > 8192 else "mono"
-        if tris_backend == "wave":
-            from rt.kernels.tris_kernel import render_color_tris_wave_record
-            color, idx_tab, morton = render_color_tris_wave_record(
-                scene, cam_row, time_arr, chunk=32, unroll=4, **common)
-        else:
-            from rt.kernels.tris_kernel import render_color_tris_record
-            color, idx_tab, morton = render_color_tris_record(
-                scene, cam_row, time_arr, chunk=32, **common)
+        from rt.kernels.tris_kernel import render_color_tris_record
+        color, idx_tab, morton = render_color_tris_record(
+            scene, cam_row, time_arr, chunk=32, unroll=TRIS_UNROLL,
+            **common)
         # map Morton-clustered table rows back to scene triangle ids
         safe = jnp.clip(idx_tab, 0, morton.shape[0] - 1)
         idx = jnp.where(idx_tab >= 0, morton[safe], -1)
@@ -169,8 +147,7 @@ def _sphere_replay_table(scene):
 def _sphere_replay_hit(scene, tab, o, d, idx, gather_mode="auto"):
     """Recompute (t, hit record) for the KNOWN sphere per lane — the
     differentiable chain of shader_sphere.wgsl:136-155 without the scan.
-    The row gather rides the MXU as a one-hot matmul (rt/grad/gather.py) —
-    per-pixel XLA gathers were the measured train-step bottleneck."""
+    The row gather is ``gather_rows_auto`` (rt/grad/gather.py)."""
     i = jnp.clip(idx, 0, scene.count - 1)
     row = gather_rows_auto(tab, i, gather_mode)
     center = row[..., 0:3]
@@ -220,9 +197,9 @@ def _tris_replay_tables(scene):
 def _tris_replay_hit(scene, tabs, o, d, idx, gather_mode="auto", row=None):
     """Recompute (t, hit record) for the KNOWN triangle per lane
     (shader_tris.wgsl:161-202's M-T restricted to the winner).  Triangle
-    and material rows arrive via the MXU one-hot gather; large meshes
-    (lucy/dragon, > MAX_ONEHOT_ROWS) fall back to the XLA gather for the
-    triangle table while the small material table stays on the MXU.
+    and material rows arrive via ``gather_rows_auto``; large meshes
+    (lucy/dragon, > MAX_ONEHOT_ROWS) take the XLA gather for the triangle
+    table while the small material table stays on the one-hot matmul.
 
     row: optionally the PRE-GATHERED (..., 13) triangle rows — the
     frozen-geometry fast path hoists the triangle-table gather out of the
@@ -271,8 +248,8 @@ def replay_color(scene, camera, config: RenderConfig, time, hits,
     semantics to render_color_diff at the recording point, at O(pixels x
     bounces) cost with no intersection scans.
 
-    gather_mode: how per-pixel primitive rows are fetched — "onehot" (MXU
-    matmul, bit-equal to the native gather), "take" (XLA gather), or
+    gather_mode: how per-pixel primitive rows are fetched — "onehot"
+    (one-hot matmul, bit-equal to the native gather), "take" (XLA gather), or
     "auto" (onehot for tables up to gather.MAX_ONEHOT_ROWS).
 
     frozen_geometry (triangle scenes only): hoist the triangle-table gather
@@ -353,7 +330,7 @@ def replay_loss_fn(base_scene, camera, config: RenderConfig, target, hits,
     optimizes materials, never vertices), the winning triangles' geometry
     rows are gathered ONCE here, eagerly, and closed over as constants:
     the per-step graph then contains no triangle-table gather at all (the
-    lucy/dragon tables are too big for the MXU one-hot path, and even the
+    lucy/dragon tables are too big for the one-hot path, and even the
     XLA forward gather is pure waste when repeated every step)."""
     from rt.grad.loss import image_mse
     from rt.grad.params import (SphereParams, apply_params, apply_tri_params,

@@ -4,7 +4,7 @@ The sphere surrogate (rt/grad/soft.py) owns pose/geometry recovery for
 sphere scenes; this is its mesh twin, closing BASELINE config 5's camera
 clause for Suzanne: the hard renderer's pose gradients are FD-correct but
 useless for RECOVERY (the visible mismatch under a pose error is discrete
-pixel reassignment — PERF.md r3 negative result), so pose is recovered on a
+pixel reassignment), so pose is recovered on a
 SMOOTH first-bounce approximation and materials are then polished with the
 exact path-replay objective (rt/grad/train.fit_replay).
 
@@ -30,7 +30,7 @@ scatter chain replaced by its sky factor — the same limit structure as the
 sphere surrogate.  Defocus blur is ignored (shared eye origin): with a
 single origin every M-T term factors into per-triangle constants dotted
 with the ray direction, so a triangle chunk costs 3 einsums over (C, H, W)
-— MXU-shaped work — instead of per-pixel cross products.
+— matmul-shaped work — instead of per-pixel cross products.
 
 Differentiable everywhere w.r.t. camera pose/fov AND material albedos
 (jointly), and vertices if made parameters.
@@ -66,8 +66,7 @@ def soft_render_tris(scene: TriangleScene, camera, config: RenderConfig,
     reference's unit-length per-pixel jitter (shader_sphere.wgsl:254-255)
     scrambles adjacent rays by +-1 px, which turns the surrogate's own
     silhouettes into noise; measured on Suzanne it erased the pose signal
-    entirely (the image-gradient loss was flat to 0.04% over +-3 degrees
-    — tools/exp_pose_landscape.py).  The surrogate is a smooth model, not
+    entirely (the image-gradient loss was flat to 0.04% over +-3 degrees).  The surrogate is a smooth model, not
     a Monte-Carlo estimator; its rays should be deterministic.
     """
     h, w = config.height, config.width
@@ -237,7 +236,7 @@ def subject_roi(scene: TriangleScene, camera, config: RenderConfig, *,
     meshes (by material id) at the given (initial-guess) camera, dilated by
     ``dilate`` pixels.  In enclosed scenes the full-frame loss is dominated
     by wall-color bias and target gradient noise (measured flat/biased
-    landscapes on Suzanne — tools/exp_pose_landscape.py); restricting the
+    landscapes on Suzanne); restricting the
     loss to the subject's silhouette neighbourhood is the standard pose-
     estimation answer, and the dilation covers the whole perturbation
     basin (2 deg ~ 35 px at 480 wide)."""

@@ -1,11 +1,10 @@
-"""Fused Pallas TPU kernels — the device-native render path.
+"""Fused Pallas kernels (Triton route) — the device render path.
 
 The reference's WGSL fragment shaders (shader_sphere.wgsl / shader_tris.wgsl)
-become fused Pallas kernels: one kernel invocation per pixel tile traces the
-full path (RNG seed → camera ray → bounce loop → sky) and writes the frame's
-color, with primitives broadcast from SMEM/VMEM scalars so there are ZERO
-per-lane gathers — the VPU analog of the GPU's SIMT model, minus the memory
-divergence.
+become fused Pallas kernels: one program per (th, tw) block of pixels traces
+the full path (RNG seed → camera ray → bounce loop → sky) with every ray's
+state in registers, and writes the frame's color once.  Scene primitives are
+uniform scalar loads broadcast against the block.
 """
 
 from rt.kernels.dispatch import render_color

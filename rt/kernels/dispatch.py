@@ -15,8 +15,29 @@ from rt.kernels.tracer_common import (CAM_BLUR, CAM_DIR, CAM_EYE, CAM_FL,
                                       CAM_FOV, CAM_RIGHT, CAM_UP, CAM_WIDTH)
 
 
+# One Triton program traces a (th, tw) block of pixels with num_warps warps
+# (th * tw == 32 * num_warps is one ray per thread).  Powers of two, as
+# Triton wants.  One warp of 4x8 rays was the fastest block for every
+# kernel in the sweep on the H100 (tools/sweep_blocks.py, PERF.md): the
+# chunk culling decides per block, and a smaller block culls more.
+BLOCK = (4, 8, 1)
+# Triangles scanned per loop iteration inside a live chunk (same ascending
+# order at any value — bit-identical); 8 was among the fastest on the
+# H100 (4 ties it; 16 and 1 lose — PERF.md).
+TRIS_UNROLL = 8
+
+
 def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
+
+
+def block_grid(h: int, w: int, block=BLOCK) -> dict:
+    """Kernel tiling for an h x w image: the block shape, the warp count
+    and the padded extent the grid covers (the kernels crop back to h, w).
+    Padding is at most th - 1 rows and tw - 1 columns."""
+    th, tw, num_warps = block
+    return dict(th=th, tw=tw, num_warps=num_warps,
+                height_pad=_round_up(h, th), width_pad=_round_up(w, tw))
 
 
 def pack_camera(camera) -> jnp.ndarray:
@@ -56,9 +77,8 @@ def render_color(scene, camera, config: RenderConfig, time,
     # the oracle renderer's loop (rt/render/renderer.py:63-70).
     spp = config.samples_per_frame
     h, w = config.height, config.width
-    th = min(16, _round_up(h, 8))
-    tw = min(256, _round_up(w, 128))
-    hp, wp = _round_up(h, th), _round_up(w, tw)
+    grid = block_grid(h, w)
+    hp, wp = grid["height_pad"], grid["width_pad"]
 
     cam_row = pack_camera(camera)
     time_arr = jnp.asarray(time, jnp.uint32).reshape(1, 1)
@@ -78,63 +98,35 @@ def render_color(scene, camera, config: RenderConfig, time,
             # sphere RTIOW cover (BASELINE config 3).  Reordering only
             # affects measure-zero exact-t ties (strict t < best).
             from rt.kernels.sphere_kernel import render_color_spheres_chunked
-            # th=32 measured best for the chunked path (1.50e8 vs 1.39e8
-            # seg/s at th=16 on cover 1280x720 b10 — r3 exp_cover_chunked)
-            th = min(32, _round_up(h, 8))
-            hp = _round_up(h, th)
             color = render_color_spheres_chunked(
                 tab, kinds, cam_row, time_arr, n_spheres=n, height=h,
-                width=w, height_pad=hp, width_pad=wp,
-                bounces=config.bounces,
+                width=w, bounces=config.bounces,
                 normalize_defocus_dir=config.normalize_defocus_dir,
                 normalize_reflect_in=config.normalize_reflect_in,
-                th=th, tw=tw, has_metal=has_metal,
-                has_dielectric=has_dielectric,
+                has_metal=has_metal, has_dielectric=has_dielectric,
                 sky_from_final_dir=config.sky_from_final_dir,
-                # unroll=32 (the whole chunk): cover 1280x720 b10 measured
-                # 7.5e7 (u1) -> 1.39e8 (u4) -> 2.05e8 (u8) -> 2.38e8 seg/s
-                # (u32) — the scan is issue-bound (r3 exp_cover_chunked /
-                # exp_sphere_unroll)
-                spp=spp, unroll=32, interpret=interpret)
+                spp=spp, interpret=interpret, **grid)
         else:
             from rt.kernels.sphere_kernel import render_color_spheres
             color = render_color_spheres(
                 tab, kinds, cam_row, time_arr, n_spheres=n, height=h,
-                width=w, height_pad=hp, width_pad=wp,
-                bounces=config.bounces,
+                width=w, bounces=config.bounces,
                 normalize_defocus_dir=config.normalize_defocus_dir,
                 normalize_reflect_in=config.normalize_reflect_in,
-                th=th, tw=tw, has_metal=has_metal,
-                has_dielectric=has_dielectric,
+                has_metal=has_metal, has_dielectric=has_dielectric,
                 sky_from_final_dir=config.sky_from_final_dir,
-                table_in_vmem=False,
-                # full scan unroll for small tables: +13% on sphere_simple
-                # (3.08 -> 3.48e9 seg/s — r3 exp_sphere_unroll); the scan
-                # is issue-bound on the serialized select chain
-                unroll_all=n <= 32,
-                spp=spp, interpret=interpret)
+                unroll_all=n <= 32, spp=spp, interpret=interpret, **grid)
     elif isinstance(scene, TriangleScene):
-        # The wavefront backend (per-bounce kernels + coherence-sorted ray
-        # streams) measured ~2.5x the monolithic kernel's compute on
-        # Suzanne (PERF.md) — it is the default triangle path; force the
-        # single-launch kernel with backend="pallas_mono".
-        if config.backend == "pallas_mono":
-            from rt.kernels.tris_kernel import render_color_tris
-            color = render_color_tris(
-                scene, cam_row, time_arr, height=h, width=w,
-                height_pad=hp, width_pad=wp,
-                bounces=config.bounces,
-                normalize_defocus_dir=config.normalize_defocus_dir,
-                normalize_reflect_in=config.normalize_reflect_in,
-                # full-chunk unroll: the scan is issue-bound (r3 probe:
-                # monotonic u4 -> u32 gains on the wave path; same body)
-                th=th, tw=tw, chunk=32, unroll=32, has_metal=has_metal,
-                has_dielectric=has_dielectric,
-                sky_from_final_dir=config.sky_from_final_dir,
-                spp=spp, interpret=interpret)
-        else:
-            return render_color_frames(scene, camera, config, time_arr,
-                                       interpret=interpret)[0]
+        from rt.kernels.tris_kernel import render_color_tris
+        color = render_color_tris(
+            scene, cam_row, time_arr, height=h, width=w,
+            bounces=config.bounces,
+            normalize_defocus_dir=config.normalize_defocus_dir,
+            normalize_reflect_in=config.normalize_reflect_in,
+            chunk=32, unroll=TRIS_UNROLL, has_metal=has_metal,
+            has_dielectric=has_dielectric,
+            sky_from_final_dir=config.sky_from_final_dir,
+            spp=spp, interpret=interpret, **grid)
     else:
         raise TypeError(f"unknown scene type {type(scene)}")
 
@@ -142,87 +134,3 @@ def render_color(scene, camera, config: RenderConfig, time,
     if (hp, wp) != (h, w):
         color = color[:h, :w]
     return color
-
-
-def wave_params(scene, config: RenderConfig) -> dict:
-    """Measured-best wavefront kernel knobs for this scene/config — shared
-    by the single-device path below and the sharded path (rt/dist/wave.py)
-    so both launch the SAME kernels.
-
-    - th=32 / chunk=32 / 8-bit origin-major key measured best on-chip for
-      suzanne-scale scenes (55.6 ms/frame vs 59-69 for neighbors); LARGE
-      scenes are pair-work-bound (tile chunk-union >> fixed costs — the
-      r2 union analysis), so they take smaller tiles + per-bounce sorting:
-      lucy 512² b5 measured 1.37e7 seg/s with th=16/sort_every=1 vs 1.11e7
-      with suzanne's config (PERF.md r2 retune).
-    - unroll: the scan is ISSUE-bound (serialized best-t select chain) —
-      r3 re-probe at F=64 shows monotonic gains past r2's u4: suzanne
-      8.40 -> 9.28e7 seg/s at u32; dragon u16 +15% (u16 == u32 there,
-      smaller code for the 1563-chunk loop).
-    - split_big: +5% on dragon (oversized triangles out of the Morton
-      clusters), noise elsewhere, so large scenes only.
-    - key_mode: the winning-chunk + direction-octant coherence key measured
-      +4.5%/+4.8% on suzanne 512/720p (r4 exp_r4_knobs: 19.95 -> 19.10
-      ms/f) but -1.5/-5% on dragon/lucy (their per-bounce re-sort already
-      keeps unions tight) — so small scenes only.  Chunk id WITHOUT the
-      octant is a measured dead end (-37% — direction info is what the
-      key adds over origin locality).
-    """
-    from rt.config import MAT_DIELECTRIC, MAT_METAL
-
-    h, w = config.height, config.width
-    large = scene.m > 8192
-    return dict(
-        key_mode="morton" if large else "chunk_oct",
-        bounces=config.bounces,
-        normalize_defocus_dir=config.normalize_defocus_dir,
-        normalize_reflect_in=config.normalize_reflect_in,
-        # re-sort every 2 bounces for small scenes (halves sort + payload
-        # roundtrips); every bounce for large ones (fresher coherence wins
-        # when the chunk-union dominates) — PERF.md
-        sort_every=1 if large else 2,
-        # r5b: the re-sort before a short REMAINDER final launch costs a
-        # full 12-operand stream sort (~1.5 ms at 262K — the comparator
-        # network dominates, tools/exp_r5_overhead.py raw-sort table) but
-        # benefits fewer bounces than every other sort in the schedule:
-        # skipping it measured +5.7% on suzanne 512² b8 on top of lean
-        # (17.43 -> 16.49 ms/f).  The knob is self-limiting (no-op unless
-        # the final launch is < sort_every bounces): removing one of only
-        # two sorts at 720p b5 measured -16%, and denser schedules
-        # (sort_every 3/4 with the skip) are -6%/-38% — coherence is
-        # load-bearing, only the remainder sort is not.
-        skip_last_sort=True,
-        split_big=large,
-        th=min(16 if large else 32, _round_up(h, 8)),
-        tw=min(256, _round_up(w, 128)),
-        chunk=32, unroll=16 if large else 32,
-        has_metal=MAT_METAL in config.mat_kinds,
-        has_dielectric=MAT_DIELECTRIC in config.mat_kinds,
-        sky_from_final_dir=config.sky_from_final_dir,
-        spp=config.samples_per_frame)
-
-
-def render_color_frames(scene, camera, config: RenderConfig, times,
-                        interpret: bool = False):
-    """(F, H, W, 3) colors for F frames of a TriangleScene in ONE wavefront
-    stream (times: (F,) or (F, 1) u32).  Per-frame results are bit-identical
-    to F single-frame calls; batching tightens sort coherence (adjacent
-    frames' rays differ only by AA/defocus jitter) and amortizes per-bounce
-    fixed costs — the batched analog of the reference's per-frame redraw
-    loop (src/app.rs:92-102)."""
-    from rt.kernels.tris_kernel import render_color_tris_wave
-
-    h, w = config.height, config.width
-    kw = wave_params(scene, config)
-    hp, wp = _round_up(h, kw["th"]), _round_up(w, kw["tw"])
-
-    cam_row = pack_camera(camera)
-    time_arr = jnp.asarray(times, jnp.uint32).reshape(-1, 1)
-    colors = render_color_tris_wave(
-        scene, cam_row, time_arr, height=h, width=w,
-        height_pad=hp, width_pad=wp,
-        interpret=interpret, **kw)                 # (F, 3, Hp, Wp)
-    colors = jnp.transpose(colors, (0, 2, 3, 1))   # (F, Hp, Wp, 3)
-    if (hp, wp) != (h, w):
-        colors = colors[:, :h, :w]
-    return colors

@@ -1,8 +1,8 @@
 """Component-plane math for Pallas kernels.
 
 Inside a kernel every vector quantity is a tuple of 2-D ``(TH, TW)`` float32
-planes (one per component) — the natural VPU layout: each op is one full-tile
-vector instruction, and the math mirrors rt/core/vecmath.py op-for-op so the
+planes (one per component) — one element per ray, each op one elementwise
+block operation, and the math mirrors rt/core/vecmath.py op-for-op so the
 kernels stay numerically interchangeable with the pure-JAX oracle.
 
 Replicated semantics (same citations as rt/core):
@@ -34,18 +34,9 @@ def rng_step(s):
     return (word >> U(22)) ^ word
 
 
-def u32_to_f32(s):
-    """Exact u32 -> f32 round-to-nearest without the (Mosaic-unsupported)
-    direct cast: split into 16-bit halves (each exactly representable), one
-    rounding at the final add — bit-identical to XLA's convert."""
-    hi = (s >> U(16)).astype(jnp.int32).astype(F)
-    lo = (s & U(0xFFFF)).astype(jnp.int32).astype(F)
-    return hi * F(65536.0) + lo
-
-
 def rng_float(s):
     s = rng_step(s)
-    return s, u32_to_f32(s) / F(_DENOM)
+    return s, s.astype(F) / F(_DENOM)
 
 
 def rng_vec2(s):

@@ -2,15 +2,16 @@
 shader_sphere.wgsl's fs_main (:252-273) + trace (:230-243) +
 intersect_all_sphere (:218-229).
 
-Design (TPU-first, see pallas guide):
-- grid over (TH, TW) pixel tiles; every per-pixel quantity is a VPU plane;
-- the sphere table is an SMEM array — per-sphere constants are SCALAR reads
-  broadcast against the tile, so the closest-hit scan is a zero-gather
-  select-chain: winning-sphere attributes are carried as planes instead of
-  gathered after the loop (the TPU answer to SIMT's divergent loads);
+Design (Pallas, Triton route):
+- grid over (th, tw) pixel blocks, about one ray per thread; every
+  per-pixel quantity is a (th, tw) plane held in registers;
+- the sphere table sits in global memory and per-sphere constants are
+  uniform SCALAR loads (served by L1) broadcast against the block, so the
+  closest-hit scan is a select chain: winning-sphere attributes are carried
+  as planes instead of gathered after the loop;
 - bounce loop and sphere loop are ``fori_loop``s inside the kernel: one
-  kernel launch traces the whole frame tile; HBM traffic is exactly one
-  (3, TH, TW) color write per tile.
+  launch traces the whole frame; device-memory traffic is one (3, th, tw)
+  color write per block.
 """
 
 from __future__ import annotations
@@ -20,13 +21,12 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from rt.config import FLT_MAX
 from rt.kernels import plane_math as pm
 from rt.kernels import tracer_common as tc
 
-# SMEM sphere-table layout (one row per sphere):
+# sphere-table layout (one row per sphere):
 #   0:3 center, 3 radius, 4:7 albedo, 7 mat_param
 SPH_COLS = 8
 
@@ -84,10 +84,8 @@ def _sphere_bounce(sph_ref, kind_ref, zero, one, carry, *, n_spheres: int,
         best0 += (izero - 1,)
     if unroll_all:
         # small scenes: fully unroll the scan (same ascending order —
-        # bit-identical); the serialized 10-plane select chain is
-        # ILP-bound, and unrolling lets the VPU overlap every sphere's
-        # independent quadratic (r3: unroll=8 gave +18% on the chunked
-        # kernel's 32-sphere scan)
+        # bit-identical), so every sphere's independent quadratic can
+        # overlap the serialized select chain
         best = best0
         for si in range(n_spheres):
             best = scan_sphere(si, best)
@@ -120,19 +118,19 @@ def _sphere_bounce(sph_ref, kind_ref, zero, one, carry, *, n_spheres: int,
     return out
 
 
-def _tile_coords(ti, tj, *, th: int, tw: int):
-    y_i = jax.lax.broadcasted_iota(jnp.int32, (th, tw), 0) + ti * th
-    x_i = jax.lax.broadcasted_iota(jnp.int32, (th, tw), 1) + tj * tw
-    return x_i, y_i
-
-
-def _kernel(sph_ref, kind_ref, cam_ref, time_ref, out_ref, *,
+def _kernel(sph_ref, kind_ref, cam_ref, time_ref, out_ref, *idx_refs,
             n_spheres: int, height: int, width: int, th: int, tw: int,
             bounces: int, normalize_defocus_dir: bool,
             normalize_reflect_in: bool, has_metal: bool = True,
             has_dielectric: bool = True, sky_from_final_dir: bool = False,
-            spp: int = 1, unroll_all: bool = False):
-    x_i, y_i = _tile_coords(pl.program_id(0), pl.program_id(1), th=th, tw=tw)
+            spp: int = 1, unroll_all: bool = False, track_idx: bool = False):
+    """One (th, tw) block of pixels: raygen, the spp loop, the bounce loop
+    and the sphere scan, with every ray's state in registers throughout.
+
+    track_idx (the path-replay recorder, spp == 1): also store the winning
+    sphere index per bounce (-1 on miss) into idx_refs[0][bounce]."""
+    x_i, y_i = tc.pixel_coords(pl.program_id(0), pl.program_id(1), th=th,
+                               tw=tw)
     x_f = x_i.astype(jnp.float32)
     y_f = y_i.astype(jnp.float32)
     x_u = x_i.astype(jnp.uint32)
@@ -154,14 +152,26 @@ def _kernel(sph_ref, kind_ref, cam_ref, time_ref, out_ref, *,
         _sphere_bounce, sph_ref, kind_ref, zero, one, n_spheres=n_spheres,
         th=th, tw=tw, normalize_reflect_in=normalize_reflect_in,
         has_metal=has_metal, has_dielectric=has_dielectric,
-        unroll_all=unroll_all)
+        unroll_all=unroll_all, track_idx=track_idx)
 
-    def bounce(_, carry):
-        # whole-tile early exit once every lane has escaped to the sky
-        return jax.lax.cond(jnp.any(carry[4] > 0), body, lambda c: c, carry)
+    def bounce(b, carry):
+        # whole-block early exit once every lane has escaped to the sky
+        live = tc.any_lane(carry[4] > 0)
+        if not track_idx:
+            return jax.lax.cond(live, body, lambda c: c, carry)
+
+        def traced(c):
+            *c, bidx = body(c)
+            return tuple(c), bidx
+
+        def dead(c):
+            return c, jnp.zeros((th, tw), jnp.int32) - 1
+
+        carry, bidx = jax.lax.cond(live, traced, dead, carry)
+        idx_refs[0][b] = bidx
+        return carry
 
     def one_sample(state):
-        # i32 active mask: bool carries fail to legalize in Mosaic scf.for
         carry = (state, o, d0, (one, one, one),
                  jnp.ones((th, tw), jnp.int32))
         state, _, d, atten, _ = jax.lax.fori_loop(0, bounces, bounce, carry)
@@ -192,57 +202,50 @@ def _kernel(sph_ref, kind_ref, cam_ref, time_ref, out_ref, *,
     out_ref[2] = col[2]
 
 
-@functools.partial(jax.jit, static_argnames=(
-    "n_spheres", "height", "width", "height_pad", "width_pad", "bounces",
-    "normalize_defocus_dir", "normalize_reflect_in", "th", "tw",
-    "has_metal", "has_dielectric", "table_in_vmem", "sky_from_final_dir",
-    "spp", "unroll_all", "interpret"))
+def _flat_call(sph_table, kind_table, cam_row, time, *, height_pad,
+               width_pad, th, tw, num_warps, interpret, track_idx, **kw):
+    kernel = functools.partial(_kernel, th=th, tw=tw, track_idx=track_idx,
+                               **kw)
+    return tc.frame_call(
+        kernel, (sph_table, kind_table, cam_row, time),
+        height_pad=height_pad, width_pad=width_pad, th=th, tw=tw,
+        num_warps=num_warps, interpret=interpret,
+        record_bounces=kw["bounces"] if track_idx else 0)
+
+
+_STATIC = ("n_spheres", "height", "width", "height_pad", "width_pad",
+           "bounces", "normalize_defocus_dir", "normalize_reflect_in", "th",
+           "tw", "num_warps", "has_metal", "has_dielectric",
+           "sky_from_final_dir", "interpret")
+
+
+@functools.partial(jax.jit, static_argnames=_STATIC + ("spp", "unroll_all"))
 def render_color_spheres(sph_table, kind_table, cam_row, time, *,
                          n_spheres: int, height: int, width: int,
                          height_pad: int, width_pad: int,
                          bounces: int, normalize_defocus_dir: bool,
-                         normalize_reflect_in: bool, th: int = 16,
-                         tw: int = 256, has_metal: bool = True,
+                         normalize_reflect_in: bool, th: int, tw: int,
+                         num_warps: int, has_metal: bool = True,
                          has_dielectric: bool = True,
-                         table_in_vmem: bool = False,
                          sky_from_final_dir: bool = False,
                          spp: int = 1, unroll_all: bool = False,
                          interpret: bool = False):
     """Returns planar (3, Hp, Wp) color for one frame (crop to H, W).
 
     height/width: REAL resolution (seed + uv math); height_pad/width_pad:
-    tile-aligned grid extent.  sph_table: (N, 8) f32, kind_table: (N, 1)
+    block-aligned grid extent.  sph_table: (N, 8) f32, kind_table: (N, 1)
     i32, cam_row: (1, 20) f32, time: (1, 1) u32.
-
-    table_in_vmem: place the sphere/kind tables in VMEM instead of SMEM —
-    required for scenes past the reference's 100-sphere cap (the RTIOW
-    ~490-sphere cover scene is a 15 KB table, over SMEM); every access is
-    already a (dynamic row, static column) scalar read, the one pattern
-    Mosaic lowers from VMEM, so the kernel body is unchanged.
     """
-    grid = (height_pad // th, width_pad // tw)
-    kernel = functools.partial(
-        _kernel, n_spheres=n_spheres, height=height, width=width, th=th,
-        tw=tw, bounces=bounces, normalize_defocus_dir=normalize_defocus_dir,
-        normalize_reflect_in=normalize_reflect_in, has_metal=has_metal,
+    return _flat_call(
+        sph_table, kind_table, cam_row, time, n_spheres=n_spheres,
+        height=height, width=width, height_pad=height_pad,
+        width_pad=width_pad, bounces=bounces,
+        normalize_defocus_dir=normalize_defocus_dir,
+        normalize_reflect_in=normalize_reflect_in, th=th, tw=tw,
+        num_warps=num_warps, has_metal=has_metal,
         has_dielectric=has_dielectric, sky_from_final_dir=sky_from_final_dir,
-        spp=spp, unroll_all=unroll_all)
-    table_space = pltpu.VMEM if table_in_vmem else pltpu.SMEM
-    return pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((3, height_pad, width_pad),
-                                       jnp.float32),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=table_space),  # sphere table
-            pl.BlockSpec(memory_space=table_space),  # kinds
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # camera
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # time
-        ],
-        out_specs=pl.BlockSpec((3, th, tw), lambda i, j: (0, i, j),
-                               memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(sph_table, kind_table, cam_row, time)
+        spp=spp, unroll_all=unroll_all, interpret=interpret,
+        track_idx=False)
 
 
 # ---------------------------------------------------------------------------
@@ -304,9 +307,7 @@ def _sphere_bounce_chunked(sph_ref, kind_ref, chunk_ref, order_ref, zero,
                 jnp.where(better, izero + kind_ref[si, 0], bkind))
 
     def scan_chunk(oi, best):
-        # front-to-back chunk visit order (precomputed from the camera eye);
-        # flattened (n_chunks, 1) column so the read is (dynamic row, static
-        # column) — the only scalar-from-VMEM pattern Mosaic lowers
+        # front-to-back chunk visit order (precomputed from the camera eye)
         ci = order_ref[oi, 0]
         # slab test of the chunk AABB against every ray in the tile (WGSL
         # fmin/fmax semantics — rt/kernels/tris_kernel.py:_fmin)
@@ -334,7 +335,7 @@ def _sphere_bounce_chunked(sph_ref, kind_ref, chunk_ref, order_ref, zero,
                 return b
             return jax.lax.fori_loop(0, chunk // unroll, body, best)
 
-        return jax.lax.cond(jnp.any(live), do, lambda b: b, best)
+        return jax.lax.cond(tc.any_lane(live), do, lambda b: b, best)
 
     best0 = (zero + FLT_MAX, (zero, zero, zero), one,
              (zero, zero, zero), zero, izero)
@@ -424,7 +425,8 @@ def _kernel_chunked(sph_ref, kind_ref, chunk_ref, order_ref, cam_ref,
                     has_metal: bool = True, has_dielectric: bool = True,
                     sky_from_final_dir: bool = False, spp: int = 1,
                     unroll: int = 1):
-    x_i, y_i = _tile_coords(pl.program_id(0), pl.program_id(1), th=th, tw=tw)
+    x_i, y_i = tc.pixel_coords(pl.program_id(0), pl.program_id(1), th=th,
+                               tw=tw)
     cam = lambda c: cam_ref[0, c]
     state, o, d4 = tc.generate_rays(
         cam, x_i.astype(jnp.float32), y_i.astype(jnp.float32),
@@ -444,7 +446,8 @@ def _kernel_chunked(sph_ref, kind_ref, chunk_ref, order_ref, cam_ref,
         has_dielectric=has_dielectric, unroll=unroll)
 
     def bounce(_, carry):
-        return jax.lax.cond(jnp.any(carry[4] > 0), body, lambda c: c, carry)
+        return jax.lax.cond(tc.any_lane(carry[4] > 0), body, lambda c: c,
+                            carry)
 
     def one_sample(state):
         carry = (state, o, d0, (one, one, one),
@@ -470,26 +473,21 @@ def _kernel_chunked(sph_ref, kind_ref, chunk_ref, order_ref, cam_ref,
     out_ref[2] = col[2]
 
 
-@functools.partial(jax.jit, static_argnames=(
-    "n_spheres", "height", "width", "height_pad", "width_pad", "bounces",
-    "normalize_defocus_dir", "normalize_reflect_in", "th", "tw", "chunk",
-    "has_metal", "has_dielectric", "sky_from_final_dir", "spp", "unroll",
-    "interpret"))
+@functools.partial(jax.jit,
+                   static_argnames=_STATIC + ("spp", "chunk", "unroll"))
 def render_color_spheres_chunked(sph_table, kind_table, cam_row, time, *,
                                  n_spheres: int, height: int, width: int,
                                  height_pad: int, width_pad: int,
                                  bounces: int, normalize_defocus_dir: bool,
-                                 normalize_reflect_in: bool, th: int = 16,
-                                 tw: int = 256, chunk: int = 32,
+                                 normalize_reflect_in: bool, th: int,
+                                 tw: int, num_warps: int, chunk: int = 32,
                                  has_metal: bool = True,
                                  has_dielectric: bool = True,
                                  sky_from_final_dir: bool = False,
                                  spp: int = 1, unroll: int = 4,
                                  interpret: bool = False):
     """Planar (3, Hp, Wp) color for one frame — Morton-chunk-culled sphere
-    scan for scenes past the reference's 100-sphere cap.  Tables live in
-    VMEM (a 490-sphere table is 15 KB, over SMEM); every access is a
-    (dynamic row, static column) scalar read."""
+    scan for scenes past the reference's 100-sphere cap."""
     sph, kinds, aabbs, n_pad, n_chunks = pack_spheres_chunked(
         sph_table, kind_table, n_spheres, chunk)
     # approximate front-to-back chunk order from the camera eye (as in the
@@ -499,7 +497,6 @@ def render_color_spheres_chunked(sph_table, kind_table, cam_row, time, *,
     dist = jnp.sum((centroid - eye) ** 2, axis=1)
     order = jnp.argsort(dist).astype(jnp.int32)[:, None]   # (n_chunks, 1)
 
-    grid = (height_pad // th, width_pad // tw)
     kernel = functools.partial(
         _kernel_chunked, n_chunks=n_chunks, chunk=chunk, height=height,
         width=width, th=th, tw=tw, bounces=bounces,
@@ -507,112 +504,32 @@ def render_color_spheres_chunked(sph_table, kind_table, cam_row, time, *,
         normalize_reflect_in=normalize_reflect_in, has_metal=has_metal,
         has_dielectric=has_dielectric, sky_from_final_dir=sky_from_final_dir,
         spp=spp, unroll=unroll)
-    return pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((3, height_pad, width_pad),
-                                       jnp.float32),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # sphere table
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # kinds
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # chunk AABBs
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # chunk visit order
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # camera
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # time
-        ],
-        out_specs=pl.BlockSpec((3, th, tw), lambda i, j: (0, i, j),
-                               memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(sph, kinds, aabbs, order, cam_row, time)
+    return tc.frame_call(
+        kernel, (sph, kinds, aabbs, order, cam_row, time),
+        height_pad=height_pad, width_pad=width_pad, th=th, tw=tw,
+        num_warps=num_warps, interpret=interpret)
 
 
-def _kernel_record(sph_ref, kind_ref, cam_ref, time_ref, out_ref, idx_ref, *,
-                   n_spheres: int, height: int, width: int, th: int, tw: int,
-                   bounces: int, normalize_defocus_dir: bool,
-                   normalize_reflect_in: bool, has_metal: bool = True,
-                   has_dielectric: bool = True,
-                   sky_from_final_dir: bool = False):
-    """Recording variant for path-replay gradients (rt/grad/replay.py):
-    identical transport to _kernel, but additionally writes the winning
-    sphere index per bounce (-1 on miss) into idx_ref[(bounces, th, tw)].
-    The bounce loop is Python-unrolled so every store has a static bounce
-    index (no dynamic-leading-dim stores to lower), and index tracking adds
-    one select per sphere — costs the recorder pays so the render-only
-    kernel stays untouched."""
-    x_i, y_i = _tile_coords(pl.program_id(0), pl.program_id(1), th=th, tw=tw)
-    state, o, d4 = tc.generate_rays(
-        lambda c: cam_ref[0, c],
-        x_i.astype(jnp.float32), y_i.astype(jnp.float32),
-        x_i.astype(jnp.uint32), y_i.astype(jnp.uint32),
-        height=height, width=width, time=time_ref[0, 0],
-        normalize_defocus_dir=normalize_defocus_dir)
-    d = (d4[0], d4[1], d4[2])
-    primary_dy = d4[1]
-
-    zero = jnp.zeros((th, tw), jnp.float32)
-    one = zero + 1.0
-    carry = (state, o, d, (one, one, one), jnp.ones((th, tw), jnp.int32))
-
-    body = functools.partial(
-        _sphere_bounce, sph_ref, kind_ref, zero, one, n_spheres=n_spheres,
-        th=th, tw=tw, normalize_reflect_in=normalize_reflect_in,
-        has_metal=has_metal, has_dielectric=has_dielectric, track_idx=True)
-
-    for b in range(bounces):
-        *carry, bidx = body(carry)
-        carry = tuple(carry)
-        idx_ref[b] = bidx
-
-    state, o, d, atten, active = carry
-    col = tc.sky_times_atten(d[1] if sky_from_final_dir else primary_dy,
-                             atten)
-    out_ref[0] = col[0]
-    out_ref[1] = col[1]
-    out_ref[2] = col[2]
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "n_spheres", "height", "width", "height_pad", "width_pad", "bounces",
-    "normalize_defocus_dir", "normalize_reflect_in", "th", "tw",
-    "has_metal", "has_dielectric", "table_in_vmem", "sky_from_final_dir",
-    "interpret"))
+@functools.partial(jax.jit, static_argnames=_STATIC)
 def render_color_spheres_record(sph_table, kind_table, cam_row, time, *,
                                 n_spheres: int, height: int, width: int,
                                 height_pad: int, width_pad: int,
                                 bounces: int, normalize_defocus_dir: bool,
-                                normalize_reflect_in: bool, th: int = 16,
-                                tw: int = 256, has_metal: bool = True,
+                                normalize_reflect_in: bool, th: int, tw: int,
+                                num_warps: int, has_metal: bool = True,
                                 has_dielectric: bool = True,
-                                table_in_vmem: bool = False,
                                 sky_from_final_dir: bool = False,
                                 interpret: bool = False):
     """(color (3, Hp, Wp) f32, hit indices (bounces, Hp, Wp) i32) — the
     forward render plus the per-bounce winning sphere index stream that
-    the path-replay backward (rt/grad/replay.py) consumes."""
-    grid = (height_pad // th, width_pad // tw)
-    kernel = functools.partial(
-        _kernel_record, n_spheres=n_spheres, height=height, width=width,
-        th=th, tw=tw, bounces=bounces,
+    the path-replay backward (rt/grad/replay.py) consumes.  Same kernel body
+    as render_color_spheres, so the color is bit-identical to it."""
+    return _flat_call(
+        sph_table, kind_table, cam_row, time, n_spheres=n_spheres,
+        height=height, width=width, height_pad=height_pad,
+        width_pad=width_pad, bounces=bounces,
         normalize_defocus_dir=normalize_defocus_dir,
-        normalize_reflect_in=normalize_reflect_in, has_metal=has_metal,
-        has_dielectric=has_dielectric, sky_from_final_dir=sky_from_final_dir)
-    table_space = pltpu.VMEM if table_in_vmem else pltpu.SMEM
-    return pl.pallas_call(
-        kernel,
-        out_shape=(jax.ShapeDtypeStruct((3, height_pad, width_pad),
-                                        jnp.float32),
-                   jax.ShapeDtypeStruct((bounces, height_pad, width_pad),
-                                        jnp.int32)),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=table_space),  # sphere table
-            pl.BlockSpec(memory_space=table_space),  # kinds
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # camera
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # time
-        ],
-        out_specs=(pl.BlockSpec((3, th, tw), lambda i, j: (0, i, j),
-                                memory_space=pltpu.VMEM),
-                   pl.BlockSpec((bounces, th, tw), lambda i, j: (0, i, j),
-                                memory_space=pltpu.VMEM)),
-        interpret=interpret,
-    )(sph_table, kind_table, cam_row, time)
+        normalize_reflect_in=normalize_reflect_in, th=th, tw=tw,
+        num_warps=num_warps, has_metal=has_metal,
+        has_dielectric=has_dielectric, sky_from_final_dir=sky_from_final_dir,
+        interpret=interpret, track_idx=True)

@@ -4,21 +4,74 @@ replicate shader_sphere.wgsl fs_main/make_ray/scatter/trace).  The math here
 must stay op-for-op identical to the oracle so the Pallas backend can be
 validated against it exactly.
 
-Camera scalars arrive as an SMEM row ``cam_ref`` with layout:
+Camera scalars arrive as a (1, CAM_WIDTH) row ``cam_ref`` with layout:
   [0:4) eye  [4:8) direction  [8:12) up  [12:16) right
   [16] focal_length  [17] focal_blur  [18] fov
 (the reference's 80-byte CameraUniform, src/camera_controller.rs:136-147).
+
+Every kernel goes through ``frame_call``: the Pallas Triton route, one
+program per (th, tw) block of rays, scene tables passed whole and read with
+uniform scalar loads that the L1 cache serves.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as pl_triton
 
 from rt.kernels import plane_math as pm
 
 CAM_EYE, CAM_DIR, CAM_UP, CAM_RIGHT = 0, 4, 8, 12
 CAM_FL, CAM_BLUR, CAM_FOV = 16, 17, 18
-CAM_WIDTH = 20  # SMEM row length (padded)
+CAM_WIDTH = 20  # camera row length (padded)
+
+
+def whole(x) -> pl.BlockSpec:
+    """BlockSpec handing the kernel the whole array (scene tables, camera,
+    time uniform) in global memory."""
+    return pl.BlockSpec(x.shape, lambda *_: (0,) * len(x.shape))
+
+
+def any_lane(mask):
+    """Block-wide OR of a bool plane — the skip test in front of a scan.
+    Triton lowers no boolean reduction, so it is an i32 max."""
+    return jnp.max(mask.astype(jnp.int32)) > 0
+
+
+def frame_call(kernel, operands, *, height_pad: int, width_pad: int,
+               th: int, tw: int, num_warps: int, interpret: bool,
+               record_bounces: int = 0):
+    """Launch a whole-frame kernel on the Triton route, one program per
+    (th, tw) pixel block (``num_stages=1``: the kernels stream no tiles,
+    so there is nothing to pipeline).  ``operands`` go in whole; the output
+    is the planar (3, Hp, Wp) color, plus the (record_bounces, Hp, Wp) i32
+    hit ids when ``record_bounces`` > 0 (the recorders)."""
+    out_shape = [jax.ShapeDtypeStruct((3, height_pad, width_pad),
+                                      jnp.float32)]
+    out_specs = [pl.BlockSpec((3, th, tw), lambda i, j: (0, i, j))]
+    if record_bounces:
+        out_shape.append(jax.ShapeDtypeStruct(
+            (record_bounces, height_pad, width_pad), jnp.int32))
+        out_specs.append(pl.BlockSpec((record_bounces, th, tw),
+                                      lambda i, j: (0, i, j)))
+    out = pl.pallas_call(
+        kernel, out_shape=tuple(out_shape),
+        grid=(height_pad // th, width_pad // tw),
+        in_specs=[whole(x) for x in operands], out_specs=tuple(out_specs),
+        compiler_params=pl_triton.CompilerParams(num_warps=num_warps,
+                                                 num_stages=1),
+        interpret=interpret)(*operands)
+    return out if record_bounces else out[0]
+
+
+def pixel_coords(ti, tj, *, th: int, tw: int, row0=0):
+    """(x, y) i32 planes of block (ti, tj); ``row0`` offsets the rows (a
+    row band of a larger image renders bit-identical rays)."""
+    y_i = jax.lax.broadcasted_iota(jnp.int32, (th, tw), 0) + ti * th + row0
+    x_i = jax.lax.broadcasted_iota(jnp.int32, (th, tw), 1) + tj * tw
+    return x_i, y_i
 
 SKY = (0.54, 0.86, 0.92)   # shader_sphere.wgsl:8
 BLUE = (0.54, 0.7, 0.98)   # shader_sphere.wgsl:9

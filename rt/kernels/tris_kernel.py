@@ -1,24 +1,21 @@
-"""Fused triangle-mesh path-trace kernel — the Pallas replacement for
-shader_tris.wgsl (fs_main :326-347, trace :303-316, Möller–Trumbore
-:161-202) with a TPU-shaped acceleration structure.
+"""Fused triangle-mesh path-trace kernel — the Pallas (Triton route)
+replacement for shader_tris.wgsl (fs_main :326-347, trace :303-316,
+Möller–Trumbore :161-202) with a block-coherent acceleration structure.
 
-Instead of the reference's per-thread stackless BVH walk (divergent control
-flow + random node loads — exactly what a VPU cannot do), the kernel uses
-the SAME spatially-sorted triangle order the BVH build produces
-(rt/scene/bvh.py — BFS median splits) but consumes it as a *wide* hierarchy:
+Instead of the reference's per-thread stackless BVH walk, the kernel
+consumes a Morton-sorted triangle order as a *wide* hierarchy:
 
-- triangles are scanned in CHUNKS of consecutive Morton-clustered leaves
-  (``chunk`` triangles each — 32 in the dispatch paths, measured best);
-  per-chunk AABBs live in VMEM (SMEM cannot hold large scenes — dragon has
-  1563 chunks of 32);
-- per chunk the whole pixel tile does one slab test (planes, ~25 VPU ops);
-  if NO ray in the tile enters the chunk the chunk's whole triangle scan is
-  skipped via a scalar branch (``lax.cond``) — tile-coherent culling, the
-  VPU analog of packet traversal;
-- inside a live chunk the triangle loop broadcasts per-triangle scalars from
-  VMEM (edges precomputed at pack time), tracking only (t, normal, mat_id)
-  closest-hit planes with selects — zero gathers anywhere; material
-  attributes are resolved ONCE per bounce from the winning mat id.
+- triangles are scanned in CHUNKS of ``chunk`` consecutive Morton-clustered
+  triangles (32 in the dispatch paths); per-chunk AABBs live in global
+  memory;
+- per chunk the whole (th, tw) block of rays does one slab test; if NO ray
+  in the block enters the chunk, the chunk's triangle scan is skipped with
+  a uniform branch (``lax.cond``) — block-coherent culling, a packet
+  traversal;
+- inside a live chunk the triangle loop broadcasts per-triangle scalars
+  (uniform loads; edges precomputed at pack time), tracking only
+  (t, normal, mat_id) closest-hit planes with selects; material attributes
+  are gathered ONCE per bounce from the winning mat id.
 
 Closest-hit semantics match rt/core/triangle.py: strict ``t < best`` with
 ascending triangle index order, EPSILON = 1e-4, flat normals, the inverted
@@ -32,15 +29,14 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from rt.config import EPSILON_TRIS, FLT_MAX
 from rt.kernels import plane_math as pm
 from rt.kernels import tracer_common as tc
 
-CHUNK = 32  # default chunk size (static); 32 measured best vs 128/16 on-chip
+CHUNK = 32  # default chunk size (static)
 
-# VMEM triangle-table columns (edges precomputed at pack time — the kernel
+# triangle-table columns (edges precomputed at pack time — the kernel
 # never re-derives b-a/c-a per lane, and material attributes are deferred to
 # a once-per-bounce resolve keyed on the winning mat id):
 #   0:3 a, 3:6 e1 = b-a, 6:9 e2 = c-a, 9:12 normal, 12 mat_id (as f32)
@@ -48,8 +44,8 @@ TRI_COLS = 13
 
 
 def _fmin(a, b):
-    """WGSL min: returns the non-NaN operand (jnp.fmin equivalent —
-    emulated because Mosaic lacks fmin)."""
+    """WGSL min: returns the non-NaN operand (jnp.fmin semantics, spelled
+    out so interpret mode and the compiled kernel agree)."""
     return jnp.where(jnp.isnan(a) | (b < a), b, a)
 
 
@@ -65,10 +61,9 @@ def _tile_rays(cam_ref, time, ti, tj, *, th: int, tw: int, height: int,
     position-based (seed = (x*height + y)*time, uv from global (x, y)), so
     a kernel covering rows [row0, row0+grid*th) of the image produces
     BIT-IDENTICAL rays to the full-frame launch.  This is what makes the
-    image-row DP sharding of the Pallas backends exact (rt/dist/wave.py):
+    image-row DP sharding of the kernel path exact (rt/dist/bands.py):
     each shard renders its band with row0 = shard_index * band_height."""
-    y_i = jax.lax.broadcasted_iota(jnp.int32, (th, tw), 0) + ti * th + row0
-    x_i = jax.lax.broadcasted_iota(jnp.int32, (th, tw), 1) + tj * tw
+    x_i, y_i = tc.pixel_coords(ti, tj, th=th, tw=tw, row0=row0)
     x_f = x_i.astype(jnp.float32)
     y_f = y_i.astype(jnp.float32)
     x_u = x_i.astype(jnp.uint32)
@@ -82,43 +77,17 @@ def _tile_rays(cam_ref, time, ti, tj, *, th: int, tw: int, height: int,
     return state, o, (d4[0], d4[1], d4[2]), d4[1]
 
 
-def _trace_bounce(tri_ref, mat_ref, chunk_ref, sub_ref, order_ref, zero,
-                  carry, *, chunk: int, n_chunks: int, n_mats: int,
-                  normalize_reflect_in: bool, has_metal: bool,
-                  has_dielectric: bool, order_base=0, unroll: int = 1,
-                  unroll_tree: bool = False, track_idx: bool = False,
-                  track_chunk: bool = False, sub: int = 0):
-    """One path-trace bounce over a tile of rays: front-to-back chunk-culled
-    closest-hit scan, once-per-bounce material resolve, scatter.  Shared by
-    the monolithic whole-frame kernel and the wavefront per-bounce kernel —
-    identical arithmetic, so the two backends agree per-ray.
+def _trace_bounce(tri_ref, mat_ref, chunk_ref, order_ref, zero, carry, *,
+                  chunk: int, n_chunks: int, normalize_reflect_in: bool,
+                  has_metal: bool, has_dielectric: bool, unroll: int = 1,
+                  track_idx: bool = False):
+    """One path-trace bounce over a block of rays: front-to-back chunk-culled
+    closest-hit scan, once-per-bounce material gather, scatter.
 
     track_idx (recording variant only): additionally returns the winning
     triangle index in the Morton-clustered table order (-1 on miss) for the
     path-replay gradient recorder — one extra select per pair that the hot
-    render path never pays.
-
-    track_chunk: additionally returns the winning CHUNK id (-1 on miss) —
-    one compare+select per CHUNK (not per triangle, ~zero cost) — the
-    byproduct coherence key for the wavefront sort (key_mode="chunk"):
-    the next bounce's origin lies ON the winning chunk's surface, so the
-    id is an exact geometry-aligned spatial bin.
-
-    sub > 0: SECOND culling level inside live chunks (r5, large scenes).
-    Each ``sub`` Morton-consecutive triangles get their own AABB
-    (sub_ref); inside a live chunk every sub-box is slab-tested and its
-    scan cond-skipped when no lane enters with tmin < best.  EXACTLY
-    result-preserving (bit-identical, not just measure-zero-safe): any
-    improving hit t < best in a box satisfies tmin <= t, so a rejected
-    box cannot contain one, and the ascending visit order is unchanged
-    (exact-arithmetic fact; computed-slab-vs-computed-M-T rounding at
-    box-surface hits is the same residual the chunk-level cond always
-    carried, guarded by the bit-identity tests).
-    Measured (tools/analyze_r5.py, 256² production configs): dragon/lucy
-    live sub-8 boxes per live chunk are 2.5-3.3 of 4 at post-bounce
-    incoherence — a 1.2-1.45x scan-work cut; suzanne-class scenes see
-    ~3.0-3.4 of 4 live at much higher per-chunk lane liveness, so the
-    dispatch enables sub-culling for large scenes only."""
+    render path never pays."""
     state, o, d, atten, active = carry
     inv_d = (1.0 / d[0], 1.0 / d[1], 1.0 / d[2])
     izero = jnp.zeros_like(active)
@@ -142,10 +111,6 @@ def _trace_bounce(tri_ref, mat_ref, chunk_ref, sub_ref, order_ref, zero,
         q = pm.cross3(s, e1)
         v = inv_det * pm.dot3(d, q)
         t = inv_det * pm.dot3(e2, q)
-        # NOTE: folding the u/v window into a min-compare chain measured
-        # ~12% SLOWER on-chip (1.6e7 vs 1.86e7 seg/s) — Mosaic issues
-        # compare+and cheaper than the serialized minimum chain.  Keep
-        # the comparison chain.
         valid = (jnp.abs(det) >= EPSILON_TRIS)
         valid &= (u >= 0.0) & (u <= 1.0)
         valid &= (v >= 0.0) & (u + v <= 1.0)
@@ -161,14 +126,9 @@ def _trace_bounce(tri_ref, mat_ref, chunk_ref, sub_ref, order_ref, zero,
 
     def scan_chunk(oi, best):
         # visit chunks approximately front-to-back (order precomputed from
-        # the camera eye, or per tile from the tile's mean ray origin in
-        # the wavefront path) so the `tmin < best_t` rejection prunes.
-        # The order table is a flattened (rows*n_chunks, 1) column so every
-        # read is (dynamic row, static column) — the only scalar-from-VMEM
-        # access pattern Mosaic can lower (a dynamic column index fails
-        # with "cannot statically prove index is a multiple of 128").
-        ci = order_ref[order_base + oi, 0]
-        # slab test of the chunk AABB against every ray in the tile
+        # the camera eye) so the `tmin < best_t` rejection prunes.
+        ci = order_ref[oi, 0]
+        # slab test of the chunk AABB against every ray in the block
         # (shader_tris.wgsl:150-159 semantics: WGSL min/max drop NaNs)
         t0x = (chunk_ref[ci, 0] - o[0]) * inv_d[0]
         t1x = (chunk_ref[ci, 3] - o[0]) * inv_d[0]
@@ -186,130 +146,36 @@ def _trace_bounce(tri_ref, mat_ref, chunk_ref, sub_ref, order_ref, zero,
         live = (active > 0) & enter
         lo = ci * chunk
 
-        def tri_candidate(k, bt):
-            # scan_tri's M-T against a STALE best bound — candidates are
-            # mutually independent, so the VPU can overlap their whole
-            # computation; the merge below restores exact sequential
-            # semantics (strict <, ascending index wins ties) bit-for-bit.
-            e1 = (tri_ref[k, 3], tri_ref[k, 4], tri_ref[k, 5])
-            e2 = (tri_ref[k, 6], tri_ref[k, 7], tri_ref[k, 8])
-            h = pm.cross3(d, e2)
-            det = pm.dot3(e1, h)
-            inv_det = 1.0 / det
-            s = (o[0] - tri_ref[k, 0], o[1] - tri_ref[k, 1],
-                 o[2] - tri_ref[k, 2])
-            u = inv_det * pm.dot3(s, h)
-            q = pm.cross3(s, e1)
-            v = inv_det * pm.dot3(d, q)
-            t = inv_det * pm.dot3(e2, q)
-            valid = (jnp.abs(det) >= EPSILON_TRIS)
-            valid &= (u >= 0.0) & (u <= 1.0)
-            valid &= (v >= 0.0) & (u + v <= 1.0)
-            valid &= (t >= EPSILON_TRIS) & (t < bt)
-            return valid, t
-
-        def scan_span(base, count, ur, best):
+        def do(best):
             # static trip count; the table is zero-padded to a chunk
             # multiple, so padding triangles are degenerate (det == 0).
-            # ``ur`` (unroll) scans several triangles per loop iteration in
-            # the same ascending order (bit-identical results) — more ILP
-            # for the VPU's issue slots between the serial best-t selects.
+            # ``unroll`` scans several triangles per loop iteration in the
+            # same ascending order (bit-identical results) — more
+            # independent work between the serial best-t selects.
             def body(kk, b):
-                for uu in range(ur):
-                    b = scan_tri(base + kk * ur + uu, b)
+                for uu in range(unroll):
+                    b = scan_tri(lo + kk * unroll + uu, b)
                 return b
+            return jax.lax.fori_loop(0, chunk // unroll, body, best)
 
-            def body_tree(kk, b):
-                kbase = base + kk * ur
-                cands = [tri_candidate(kbase + uu, b[0])
-                         for uu in range(ur)]
-                for uu, (valid, t) in enumerate(cands):
-                    k = kbase + uu
-                    bt, bnrm, bmid = b[:3]
-                    # t < bt_run subsumes the stale bound; predicates equal
-                    # the sequential scan's exactly
-                    better = valid & (t < bt)
-                    nb = (jnp.where(better, t, bt),
-                          pm.where3(better, (zero + tri_ref[k, 9],
-                                             zero + tri_ref[k, 10],
-                                             zero + tri_ref[k, 11]), bnrm),
-                          jnp.where(better, zero + tri_ref[k, 12], bmid))
-                    if track_idx:
-                        nb += (jnp.where(better, izero + k, b[3]),)
-                    b = nb
-                return b
-
-            return jax.lax.fori_loop(0, count // ur,
-                                     body_tree if unroll_tree else body,
-                                     best)
-
-        def do(best):
-            if not sub:
-                return scan_span(lo, chunk, unroll, best)
-            # second-level culling: slab-test each sub-box of ``sub``
-            # triangles against the CURRENT best (it tightens between
-            # boxes) and cond-skip boxes no lane can improve in —
-            # conservative, ascending order kept, hence bit-identical
-            n_sub = chunk // sub
-            sbase = ci * n_sub
-
-            def sub_body(si, b):
-                r = sbase + si
-                s0x = (sub_ref[r, 0] - o[0]) * inv_d[0]
-                s1x = (sub_ref[r, 3] - o[0]) * inv_d[0]
-                s0y = (sub_ref[r, 1] - o[1]) * inv_d[1]
-                s1y = (sub_ref[r, 4] - o[1]) * inv_d[1]
-                s0z = (sub_ref[r, 2] - o[2]) * inv_d[2]
-                s1z = (sub_ref[r, 5] - o[2]) * inv_d[2]
-                smin = _fmax(_fmax(_fmin(s0x, s1x), _fmin(s0y, s1y)),
-                             _fmin(s0z, s1z))
-                smax = _fmin(_fmin(_fmax(s0x, s1x), _fmax(s0y, s1y)),
-                             _fmax(s0z, s1z))
-                live_s = (active > 0) & (smin <= smax) & (smax >= 0.0) \
-                    & (smin < b[0])
-                return jax.lax.cond(
-                    jnp.any(live_s),
-                    lambda bb: scan_span(lo + si * sub, sub,
-                                         min(unroll, sub), bb),
-                    lambda bb: bb, b)
-
-            return jax.lax.fori_loop(0, n_sub, sub_body, best)
-
-        if track_chunk:
-            core, wch = best[:-1], best[-1]
-            core_new = jax.lax.cond(jnp.any(live), do, lambda b: b, core)
-            # the chunk whose scan last improved best-t owns the hit
-            wch = jnp.where(core_new[0] < core[0], izero + ci, wch)
-            return core_new + (wch,)
-        return jax.lax.cond(jnp.any(live), do, lambda b: b, best)
+        return jax.lax.cond(tc.any_lane(live), do, lambda b: b, best)
 
     best0 = (zero + FLT_MAX, (zero, zero, zero), zero)
     if track_idx:
         best0 += (izero - 1,)
-    if track_chunk:
-        best0 += (izero - 1,)
     best = jax.lax.fori_loop(0, n_chunks, scan_chunk, best0)
     bt, bnrm, bmid = best[:3]
-    btid = best[3] if track_idx else None
-    bwch = best[-1] if track_chunk else None
 
     hit = (active > 0) & (bt != FLT_MAX)
 
-    # material attributes resolved ONCE per bounce from the winning
-    # mat id (an unrolled select chain over the scene's materials) —
-    # the per-triangle scan only tracks (t, normal, mat_id).  Miss
-    # lanes resolve to material 0; their scatter output is discarded
-    # by the `hit` mask below.
-    bal = (zero, zero, zero)
-    bpar = zero
-    bkind = zero
-    for j in range(n_mats):
-        match = bmid == jnp.float32(j)
-        bal = pm.where3(match, (zero + mat_ref[j, 0],
-                                zero + mat_ref[j, 1],
-                                zero + mat_ref[j, 2]), bal)
-        bpar = jnp.where(match, mat_ref[j, 3], bpar)
-        bkind = jnp.where(match, mat_ref[j, 4], bkind)
+    # material attributes gathered ONCE per bounce from the winning mat
+    # id (a per-lane load) — the per-triangle scan only tracks
+    # (t, normal, mat_id).  Miss lanes read material 0; their scatter
+    # output is discarded by the `hit` mask below.
+    mid = bmid.astype(jnp.int32)
+    bal = (mat_ref[mid, 0], mat_ref[mid, 1], mat_ref[mid, 2])
+    bpar = mat_ref[mid, 3]
+    bkind = mat_ref[mid, 4]
 
     # hit record (shader_tris.wgsl:197-201): flat normal, NO flip,
     # inverted front_face convention.
@@ -328,22 +194,22 @@ def _trace_bounce(tri_ref, mat_ref, chunk_ref, sub_ref, order_ref, zero,
     atten = pm.where3(hit, pm.scale3(pm.mul3(atten, bal), 0.7), atten)
     out = (state, o, d, atten, hit.astype(jnp.int32))
     if track_idx:
-        out += (jnp.where(hit, btid, izero - 1),)
-    if track_chunk:
-        out += (jnp.where(hit, bwch, izero - 1),)
+        out += (jnp.where(hit, best[3], izero - 1),)
     return out
 
 
-def _kernel(tri_ref, mat_ref, chunk_ref, sub_ref, order_ref, cam_ref,
-            time_ref, row0_ref, out_ref, *,
-            m: int, n_chunks: int, chunk: int, n_mats: int, height: int,
-            width: int,
+def _kernel(tri_ref, mat_ref, chunk_ref, order_ref, cam_ref, time_ref,
+            row0_ref, out_ref, *idx_refs,
+            n_chunks: int, chunk: int, height: int, width: int,
             th: int, tw: int, bounces: int, normalize_defocus_dir: bool,
             normalize_reflect_in: bool, has_metal: bool = True,
             has_dielectric: bool = True, sky_from_final_dir: bool = False,
-            unroll: int = 1, unroll_tree: bool = False, spp: int = 1,
-            sub: int = 0):
-    """Monolithic whole-frame kernel: raygen + all bounces in one launch."""
+            unroll: int = 1, spp: int = 1, track_idx: bool = False):
+    """Monolithic whole-frame kernel: raygen + all bounces in one launch.
+
+    track_idx (the path-replay recorder, spp == 1): also store the winning
+    triangle index per bounce (-1 on miss, Morton-clustered table order)
+    into idx_refs[0][bounce]."""
     state, o, d0, primary_dy = _tile_rays(
         cam_ref, time_ref[0, 0], pl.program_id(0), pl.program_id(1), th=th,
         tw=tw, height=height, width=width,
@@ -353,17 +219,28 @@ def _kernel(tri_ref, mat_ref, chunk_ref, sub_ref, order_ref, cam_ref,
     one = zero + 1.0
 
     trace1 = functools.partial(
-        _trace_bounce, tri_ref, mat_ref, chunk_ref, sub_ref, order_ref, zero,
-        chunk=chunk, n_chunks=n_chunks, n_mats=n_mats,
+        _trace_bounce, tri_ref, mat_ref, chunk_ref, order_ref, zero,
+        chunk=chunk, n_chunks=n_chunks,
         normalize_reflect_in=normalize_reflect_in, has_metal=has_metal,
-        has_dielectric=has_dielectric, unroll=unroll,
-        unroll_tree=unroll_tree, sub=sub)
+        has_dielectric=has_dielectric, unroll=unroll, track_idx=track_idx)
 
-    def bounce(_, carry):
-        # whole-tile early exit: once every lane has escaped to the sky the
+    def bounce(b, carry):
+        # whole-block early exit: once every lane has escaped to the sky the
         # remaining bounces are no-ops — skip the chunk scans entirely
-        return jax.lax.cond(jnp.any(carry[4] > 0), trace1, lambda c: c,
-                            carry)
+        live = tc.any_lane(carry[4] > 0)
+        if not track_idx:
+            return jax.lax.cond(live, trace1, lambda c: c, carry)
+
+        def traced(c):
+            *c, btid = trace1(c)
+            return tuple(c), btid
+
+        def dead(c):
+            return c, jnp.zeros((th, tw), jnp.int32) - 1
+
+        carry, btid = jax.lax.cond(live, traced, dead, carry)
+        idx_refs[0][b] = btid
+        return carry
 
     def one_sample(state):
         carry = (state, o, d0, (one, one, one),
@@ -411,7 +288,7 @@ def _morton_order(centroids):
 
     The parity-critical implicit-heap BVH (rt/scene/bvh.py) uses the
     reference's BFS median splits, whose subtree AABBs overlap badly on
-    merged scenes (measured 81% live chunks on Suzanne — PERF.md).  The
+    merged scenes (81% of chunks live on Suzanne in that order).  The
     kernel is free to scan triangles in ANY order (closest-hit with strict
     ``t < best`` is order-independent up to measure-zero ties), so its
     chunks come from a Morton sort: spatially compact clusters → tight
@@ -427,30 +304,11 @@ def _morton_order(centroids):
     return jnp.argsort(code, stable=True)
 
 
-def pack_tri_table(scene, chunk: int = CHUNK, split_big: bool = False,
-                   sub: int = 8):
-    """Build the (m_pad, 13) VMEM triangle table (Morton-clustered order,
-    precomputed edges, per-triangle mat id), the (K, 5) SMEM material table
-    [albedo rgb, param, kind], the (n_chunks, 6) chunk-AABB table, and the
-    (m_pad//sub, 6) SUB-box AABB table (``sub`` Morton-consecutive
-    triangles per box — the second culling level the large-scene kernels
-    cond-skip inside live chunks, r5).
-
-    split_big: segregate oversized triangles (area > 16x median — scene
-    enclosures like suzanne's room) into their own trailing chunks so they
-    stop inflating the Morton clusters' AABBs.  Pure reordering: closest
-    hit is order-independent (strict t < best) up to exact-t ties."""
-    m = scene.m
-    if split_big:
-        e1 = scene.b - scene.a
-        e2 = scene.c - scene.a
-        area2 = jnp.sum(jnp.cross(e1, e2) ** 2, axis=1)
-        big = area2 > 256.0 * jnp.median(area2)   # (16x median edge scale)^2
-        morton = _morton_order((scene.a + scene.b + scene.c) / 3.0)
-        keyed = jnp.argsort(big[morton].astype(jnp.int32), stable=True)
-        order = morton[keyed]
-    else:
-        order = _morton_order((scene.a + scene.b + scene.c) / 3.0)
+def pack_tri_table(scene, chunk: int = CHUNK):
+    """Build the (m_pad, 13) triangle table (Morton-clustered order,
+    precomputed edges, per-triangle mat id), the (K, 5) material table
+    [albedo rgb, param, kind] and the (n_chunks, 6) chunk-AABB table."""
+    order = _morton_order((scene.a + scene.b + scene.c) / 3.0)
     a = scene.a[order].astype(jnp.float32)
     b = scene.b[order].astype(jnp.float32)
     c = scene.c[order].astype(jnp.float32)
@@ -467,6 +325,7 @@ def pack_tri_table(scene, chunk: int = CHUNK, split_big: bool = False,
 
     # zero-pad to a chunk multiple; padding rows are degenerate (e1=e2=0 so
     # det == 0 rejects them)
+    m = scene.m
     m_pad = -(-m // chunk) * chunk
     if m_pad != m:
         tab = jnp.concatenate(
@@ -474,9 +333,7 @@ def pack_tri_table(scene, chunk: int = CHUNK, split_big: bool = False,
 
     # chunk AABBs over the clustered order (vertex min/max per chunk, from
     # the ordered vertices — the table itself only holds edges); padding
-    # chunks would be empty — m_pad is an exact multiple so every chunk
-    # holds >= 1 real triangle except possibly the last, whose box only
-    # shrinks
+    # vertices never widen a box
     verts = jnp.stack([a, b, c], axis=1)                # (m, 3, 3)
     big = jnp.float32(3.0e38)
     if m_pad != m:
@@ -488,913 +345,88 @@ def pack_tri_table(scene, chunk: int = CHUNK, split_big: bool = False,
     vmin = verts_min.reshape(-1, chunk, 3, 3).min(axis=(1, 2))
     vmax = verts_max.reshape(-1, chunk, 3, 3).max(axis=(1, 2))
     chunks = jnp.concatenate([vmin, vmax], axis=1).astype(jnp.float32)
-    smin = verts_min.reshape(-1, sub, 3, 3).min(axis=(1, 2))
-    smax = verts_max.reshape(-1, sub, 3, 3).max(axis=(1, 2))
-    subs = jnp.concatenate([smin, smax], axis=1).astype(jnp.float32)
-    return tab, mats, chunks, subs, m_pad, chunks.shape[0]
+    return tab, mats, chunks, m_pad, chunks.shape[0]
 
 
-@functools.partial(jax.jit, static_argnames=(
-    "height", "width", "height_pad", "width_pad", "bounces",
-    "normalize_defocus_dir", "normalize_reflect_in", "th", "tw", "chunk",
-    "has_metal", "has_dielectric", "sky_from_final_dir", "unroll",
-    "unroll_tree", "spp", "interpret", "sub"))
+def _eye_order(cam_row, chunks):
+    """Approximate front-to-back chunk visit order from the camera eye
+    (closest chunk-AABB centroid first) as an (n_chunks, 1) i32 column;
+    order only affects pruning, never the closest hit (strict t < best)."""
+    eye = cam_row[0, 0:3]
+    centroid = (chunks[:, 0:3] + chunks[:, 3:6]) * 0.5
+    dist = jnp.sum((centroid - eye) ** 2, axis=1)
+    return jnp.argsort(dist).astype(jnp.int32)[:, None]
+
+
+def _mono_call(scene, cam_row, time, row0, *, height_pad, width_pad, th,
+               tw, chunk, num_warps, interpret, track_idx, **kw):
+    tab, mats, chunks, _, n_chunks = pack_tri_table(scene, chunk)
+    order = _eye_order(cam_row, chunks)
+    row0_arr = (jnp.zeros((1, 1), jnp.int32) if row0 is None
+                else jnp.asarray(row0, jnp.int32).reshape(1, 1))
+    kernel = functools.partial(_kernel, n_chunks=n_chunks, chunk=chunk,
+                               th=th, tw=tw, track_idx=track_idx, **kw)
+    return tc.frame_call(
+        kernel, (tab, mats, chunks, order, cam_row, time, row0_arr),
+        height_pad=height_pad, width_pad=width_pad, th=th, tw=tw,
+        num_warps=num_warps, interpret=interpret,
+        record_bounces=kw["bounces"] if track_idx else 0)
+
+
+_STATIC = ("height", "width", "height_pad", "width_pad", "bounces",
+           "normalize_defocus_dir", "normalize_reflect_in", "th", "tw",
+           "num_warps", "chunk", "unroll", "has_metal", "has_dielectric",
+           "sky_from_final_dir", "interpret")
+
+
+@functools.partial(jax.jit, static_argnames=_STATIC + ("spp",))
 def render_color_tris(scene, cam_row, time, *, height: int, width: int,
                       height_pad: int, width_pad: int, bounces: int,
                       normalize_defocus_dir: bool, normalize_reflect_in: bool,
-                      th: int = 8, tw: int = 256, chunk: int = CHUNK,
-                      has_metal: bool = True, has_dielectric: bool = True,
-                      sky_from_final_dir: bool = False, unroll: int = 1,
-                      unroll_tree: bool = False, spp: int = 1,
-                      row0=None, interpret: bool = False, sub: int = 0):
+                      th: int, tw: int, num_warps: int, chunk: int = CHUNK,
+                      unroll: int = 1, has_metal: bool = True,
+                      has_dielectric: bool = True,
+                      sky_from_final_dir: bool = False, spp: int = 1,
+                      row0=None, interpret: bool = False):
     """Planar (3, Hp, Wp) color for one frame of a TriangleScene.
 
     row0: optional global row offset (traced i32 scalar) — the launch then
     covers image rows [row0, row0 + height_pad) with bit-identical rays to
     the same rows of a full-frame launch (image-row DP sharding)."""
-    tab, mats, chunks, subs, m, n_chunks = pack_tri_table(
-        scene, chunk, sub=max(sub, 8))
-    # approximate front-to-back chunk order from the camera eye (closest
-    # chunk-AABB centroid first); ties/order only affect pruning, not the
-    # closest-hit result (strict t < best)
-    eye = cam_row[0, 0:3]
-    centroid = (chunks[:, 0:3] + chunks[:, 3:6]) * 0.5
-    dist = jnp.sum((centroid - eye) ** 2, axis=1)
-    order = jnp.argsort(dist).astype(jnp.int32)[:, None]   # (n_chunks, 1)
-    grid = (height_pad // th, width_pad // tw)
-    kernel = functools.partial(
-        _kernel, m=m, n_chunks=n_chunks, chunk=chunk,
-        n_mats=mats.shape[0], height=height,
-        width=width, th=th,
-        tw=tw, bounces=bounces, normalize_defocus_dir=normalize_defocus_dir,
-        normalize_reflect_in=normalize_reflect_in, has_metal=has_metal,
-        has_dielectric=has_dielectric, sky_from_final_dir=sky_from_final_dir,
-        unroll=unroll, unroll_tree=unroll_tree, spp=spp, sub=sub)
-    row0_arr = (jnp.zeros((1, 1), jnp.int32) if row0 is None
-                else jnp.asarray(row0, jnp.int32).reshape(1, 1))
-    return pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((3, height_pad, width_pad),
-                                       jnp.float32),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # triangle table
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # material table
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # chunk AABBs (VMEM:
-            #   SMEM cannot hold large scenes — dragon has 1563 chunks)
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # sub-box AABBs
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # chunk visit order
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # camera
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # time
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # row0 (DP row offset)
-        ],
-        out_specs=pl.BlockSpec((3, th, tw), lambda i, j: (0, i, j),
-                               memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(tab, mats, chunks, subs, order, cam_row, time, row0_arr)
-
-
-# ---------------------------------------------------------------------------
-# Wavefront backend: per-bounce kernels with XLA ray sorting in between.
-#
-# The monolithic kernel's tile-level chunk culling degrades after the first
-# bounce: a (th, tw) PIXEL tile's scattered rays union-touch nearly every
-# chunk (measured 81% live pre-Morton — PERF.md).  The wavefront backend
-# re-sorts the ray stream between bounces by (origin Morton code, direction
-# octant), so each tile holds spatially/directionally coherent rays whose
-# union frustum is tight and the slab test actually prunes.  Dead rays sort
-# to the end (key 0xFFFFFFFF) and their tiles skip the scan entirely —
-# bounce-level compaction for open scenes.
-#
-# Per-ray results are IDENTICAL to the monolithic kernel: the bounce body is
-# the same `_trace_bounce` (same arithmetic per (ray, triangle) pair), and
-# sorting only changes which tile a ray lands in; the final scatter restores
-# pixel order.  Caveat: bounces >= 1 use a per-TILE front-to-back chunk
-# visit order (the monolithic kernel uses the camera-eye order), and with
-# strict ``t < best`` closest-hit a cross-chunk EXACT-t tie (e.g. a ray
-# through a shared edge of triangles in different chunks) resolves to
-# whichever chunk is visited first — so wave==mono bit-identity is
-# measure-zero-safe, not absolute; the golden-metric tests are the backstop.
-# (Within a chunk, ascending triangle order is shared, so intra-chunk ties
-# agree.)
-# ---------------------------------------------------------------------------
-
-
-def _wave_first_kernel(tri_ref, mat_ref, chunk_ref, sub_ref, order_ref,
-                       cam_ref, time_ref, row0_ref, payf_ref, state_ref,
-                       active_ref, *rest,
-                       n_chunks: int, chunk: int, n_mats: int, height: int,
-                       width: int, th: int, tw: int,
-                       normalize_defocus_dir: bool,
-                       normalize_reflect_in: bool, has_metal: bool,
-                       has_dielectric: bool, unroll: int = 1,
-                       unroll_tree: bool = False, track_idx: bool = False,
-                       track_chunk: bool = False, sub: int = 0):
-    """Raygen fused with bounce 0 (primary rays are already coherent in
-    pixel order — no sort needed before the first bounce).  Outputs the ray
-    payload: payf = [o(3), d(3), atten(3), primary_dy] planes.
-
-    Grid is (n_frames, tile_rows, tile_cols): the wavefront stream batches
-    N frames' rays (time_ref holds one time uniform per frame), which
-    tightens sort coherence (same pixel region across frames) and amortizes
-    the per-bounce fixed costs over N frames.
-
-    track_idx (recording variant): one extra i32 output plane holding the
-    winning triangle's Morton-table index (-1 on miss) for bounce 0."""
-    state, o, d, primary_dy = _tile_rays(
-        cam_ref, time_ref[pl.program_id(0), 0], pl.program_id(1),
-        pl.program_id(2), th=th, tw=tw, height=height, width=width,
-        normalize_defocus_dir=normalize_defocus_dir, row0=row0_ref[0, 0])
-
-    zero = jnp.zeros((th, tw), jnp.float32)
-    one = zero + 1.0
-    carry = (state, o, d, (one, one, one), jnp.ones((th, tw), jnp.int32))
-    out = _trace_bounce(
-        tri_ref, mat_ref, chunk_ref, sub_ref, order_ref, zero, carry,
-        chunk=chunk, n_chunks=n_chunks, n_mats=n_mats,
-        normalize_reflect_in=normalize_reflect_in, has_metal=has_metal,
-        has_dielectric=has_dielectric, unroll=unroll,
-        unroll_tree=unroll_tree, track_idx=track_idx,
-        track_chunk=track_chunk, sub=sub)
-    if track_chunk:
-        *out, bwch = out
-        rest[-1][...] = bwch
-    if track_idx:
-        state, o, d, atten, active, btid = out
-        rest[0][...] = btid
-    else:
-        state, o, d, atten, active = out
-
-    for c in range(3):
-        payf_ref[c] = o[c]
-        payf_ref[3 + c] = d[c]
-        payf_ref[6 + c] = atten[c]
-    payf_ref[9] = primary_dy
-    state_ref[...] = state
-    active_ref[...] = active
-
-
-def _wave_raygen_kernel(cam_ref, time_ref, row0_ref, od_ref, pdy_ref,
-                        state_ref, *,
-                        height: int, width: int, th: int, tw: int,
-                        normalize_defocus_dir: bool):
-    """Raygen WITHOUT bounce 0 — the spp>1 wavefront path re-traces the same
-    primary ray spp times with threaded RNG state (the reference's
-    SAMPLE_PER_FRAME loop makes the ray once, fs_main), so the primary
-    payload and post-raygen state are emitted once and every sample's bounce
-    pipeline starts from them."""
-    state, o, d, primary_dy = _tile_rays(
-        cam_ref, time_ref[pl.program_id(0), 0], pl.program_id(1),
-        pl.program_id(2), th=th, tw=tw, height=height, width=width,
-        normalize_defocus_dir=normalize_defocus_dir, row0=row0_ref[0, 0])
-    for c in range(3):
-        od_ref[c] = o[c]
-        od_ref[3 + c] = d[c]
-    pdy_ref[...] = primary_dy
-    state_ref[...] = state
-
-
-def _wave_bounce_kernel(tri_ref, mat_ref, chunk_ref, sub_ref, order_ref,
-                        payf_ref, state_ref, active_ref, opayf_ref,
-                        ostate_ref, oactive_ref, *rest, n_chunks: int,
-                        chunk: int, n_mats: int, th: int, tw: int,
-                        n_bounces: int,
-                        normalize_reflect_in: bool, has_metal: bool,
-                        has_dielectric: bool, unroll: int = 1,
-                        unroll_tree: bool = False, track_idx: bool = False,
-                        track_chunk: bool = False, sub: int = 0):
-    """n_bounces bounces over a tile of (sorted) rays — fusing 2 bounces
-    per launch halves the sort + payload-roundtrip count at slightly
-    staler coherence for the second bounce.
-
-    track_idx (recording variant): one extra i32 output plane per fused
-    bounce holding the winning Morton-table triangle index (-1 on miss /
-    dead lanes) — the recorder fuses one bounce per launch, so the plane
-    count stays 1 there.
-
-    track_chunk (key_mode="chunk" render path): one extra i32 output plane
-    holding the LAST fused bounce's winning chunk id (-1 miss/dead) — the
-    next sort's coherence key."""
-    zero = jnp.zeros((th, tw), jnp.float32)
-    carry = (state_ref[...],
-             (payf_ref[0], payf_ref[1], payf_ref[2]),
-             (payf_ref[3], payf_ref[4], payf_ref[5]),
-             (payf_ref[6], payf_ref[7], payf_ref[8]),
-             active_ref[...])
-
-    trace1 = functools.partial(
-        _trace_bounce, tri_ref, mat_ref, chunk_ref, sub_ref, order_ref, zero,
-        chunk=chunk, n_chunks=n_chunks, n_mats=n_mats,
-        normalize_reflect_in=normalize_reflect_in, has_metal=has_metal,
-        has_dielectric=has_dielectric, unroll=unroll,
-        unroll_tree=unroll_tree, track_idx=track_idx,
-        track_chunk=track_chunk, sub=sub,
-        order_base=pl.program_id(0) * n_chunks)
-
-    if track_idx:
-        # Python-unrolled so every idx store has a static plane index
-        for b in range(n_bounces):
-            def traced(c):
-                *c2, btid = trace1(c)
-                return tuple(c2), btid
-
-            def dead(c):
-                return c, jnp.zeros((th, tw), jnp.int32) - 1
-
-            carry, btid = jax.lax.cond(jnp.any(carry[4] > 0), traced, dead,
-                                       carry)
-            rest[0][b] = btid
-        state, o, d, atten, active = carry
-    elif track_chunk:
-        neg1 = jnp.zeros((th, tw), jnp.int32) - 1
-
-        def bounce(_, c6):
-            def traced(c6):
-                return trace1(c6[:5])
-
-            return jax.lax.cond(jnp.any(c6[4] > 0), traced, lambda c: c, c6)
-
-        *carry, bwch = jax.lax.fori_loop(0, n_bounces, bounce,
-                                         carry + (neg1,))
-        state, o, d, atten, active = carry
-        rest[-1][...] = bwch
-    else:
-        def bounce(_, carry):
-            # whole-tile skip: sorted dead rays cluster into all-dead tiles
-            return jax.lax.cond(jnp.any(carry[4] > 0), trace1, lambda c: c,
-                                carry)
-
-        state, o, d, atten, active = jax.lax.fori_loop(
-            0, n_bounces, bounce, carry)
-
-    for c in range(3):
-        opayf_ref[c] = o[c]
-        opayf_ref[3 + c] = d[c]
-        opayf_ref[6 + c] = atten[c]
-    ostate_ref[...] = state
-    oactive_ref[...] = active
-
-
-def _seg_sort(operands, seg: int):
-    """Variadic ``lax.sort`` over ``seg`` independent equal segments of the
-    stream (reshape to (seg, n/seg), sort along the last axis, flatten).
-
-    XLA's TPU sort is SUPERLINEAR in key count (measured 0.8 / 5.6 / 41 ms
-    per 14-operand sort at 262K / 1M / 4.2M keys — PERF.md), which caps
-    stream size and killed frame-batched streams in r2.  Segment-local
-    sorting makes the cost ~linear again, and it is sound for BOTH sort
-    uses here because segments never exchange rays: coherence only needs
-    rays grouped within a tile (tiles are 8K rays ≪ a segment), and the
-    pixel-order restore keyed on ``pix`` stays exact because each segment
-    always holds precisely its original contiguous pix block (sorting a
-    segment ascending = global ascending).
-    """
-    if seg == 1:
-        return jax.lax.sort(operands, num_keys=1)
-    shaped = tuple(x.reshape(seg, -1) for x in operands)
-    return tuple(o.reshape(-1) for o in jax.lax.sort(shaped, num_keys=1))
-
-
-def _ray_sort_key(o, d, lo, inv_span, active, *, bits: int = 8,
-                  dir_bits: int = 1, dmajor: bool = False):
-    """u32 coherence key: origin Morton code (``bits``/axis over the scene
-    bounds) interleaved with a direction Morton code (``dir_bits``/axis —
-    1 bit/axis is the classic sign octant; more bits subdivide the octant,
-    which matters because post-bounce direction SPREAD, not origin spread,
-    is what widens a tile's chunk union); dead rays get 0xFFFFFFFF so they
-    cluster at the stream's end and their tiles skip the scan."""
-    # the origin and direction codes must fit in u32 together, else shifts
-    # silently drop Morton bits — a coherence (perf) corruption, not a
-    # correctness one.
-    assert 3 * bits + 3 * dir_bits <= 32, \
-        f"key_bits={bits}/dir_bits={dir_bits} overflow the u32 sort key"
-    top = float((1 << bits) - 1)
-    q = [jnp.clip((o[c] - lo[c]) * inv_span[c] * top, 0.0,
-                  top).astype(jnp.uint32) for c in range(3)]
-    code = (_spread10(q[0]) << 2) | (_spread10(q[1]) << 1) | _spread10(q[2])
-    # directions are unit vectors after the first bounce (scatter outputs
-    # are normalized), so quantize [-1, 1]; floor((d+1)*2^(b-1)) clipped —
-    # at dir_bits=1 this is the sign octant.
-    half = float(1 << (dir_bits - 1))
-    dtop = (1 << dir_bits) - 1
-    qd = [jnp.clip((d[c] + 1.0) * half, 0.0,
-                   float(dtop)).astype(jnp.uint32) for c in range(3)]
-    dcode = (_spread10(qd[0]) << 2) | (_spread10(qd[1]) << 1) \
-        | _spread10(qd[2])
-    if dmajor:
-        key = (dcode << (3 * bits)) | code
-    else:
-        key = (code << (3 * dir_bits)) | dcode
-    return jnp.where(active > 0, key, jnp.uint32(0xFFFFFFFF))
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "height", "width", "height_pad", "width_pad", "bounces",
-    "normalize_defocus_dir", "normalize_reflect_in", "th", "tw", "chunk",
-    "has_metal", "has_dielectric", "sky_from_final_dir", "unroll",
-    "unroll_tree", "split_big", "interpret", "sort", "key_bits",
-    "key_dir_bits", "key_dmajor", "sort_every", "spp", "sort_segments",
-    "key_mode", "sub", "lean", "skip_last_sort", "solo_bounce0"))
-def render_color_tris_wave(scene, cam_row, time, *, height: int, width: int,
-                           height_pad: int, width_pad: int, bounces: int,
-                           normalize_defocus_dir: bool,
-                           normalize_reflect_in: bool,
-                           th: int = 8, tw: int = 256, chunk: int = CHUNK,
-                           has_metal: bool = True, has_dielectric: bool = True,
-                           sky_from_final_dir: bool = False,
-                           unroll: int = 1, unroll_tree: bool = False,
-                           split_big: bool = False,
-                           interpret: bool = False, sort: bool = True,
-                           key_bits: int = 8, key_dir_bits: int = 1,
-                           key_dmajor: bool = False,
-                           sort_every: int = 1, spp: int = 1,
-                           sort_segments: int = 1, key_mode: str = "morton",
-                           row0=None, sub: int = 0, lean: bool = True,
-                           skip_last_sort: bool = False,
-                           solo_bounce0: bool = False):
-    """Planar (F, 3, Hp, Wp) colors for F frames — wavefront variant.
-
-    row0: optional global row offset (traced i32 scalar) for image-row DP
-    sharding — the launch covers rows [row0, row0 + height_pad) of the
-    global frame with bit-identical rays (rt/dist/wave.py wraps this in
-    shard_map; the whole stream pipeline — sorts included — then stays
-    shard-local, preserving the zero-per-frame-collectives DP design).
-
-    ``time`` is (F, 1) u32, one time uniform per frame; all F frames' rays
-    trace as ONE sorted stream (per-frame results are bit-identical to F
-    single-frame calls — rays never interact).
-
-    spp > 1 (SAMPLE_PER_FRAME, shader fs_main): the SAME primary rays are
-    re-traced spp times with the per-pixel RNG state THREADED across samples
-    (scattered back to pixel order between samples), and the sample sum is
-    averaged — bit-equal to the oracle renderer's sample loop.  Each sample
-    runs the full sorted-stream bounce pipeline.
-
-    sort_segments: split every stream sort (coherence + restore) into this
-    many independent equal segments (see _seg_sort) — the answer to XLA's
-    superlinear sort cost on large streams (720p / frame-batched).  Must
-    divide the stream into tile-aligned segments.  Per-ray results change
-    only through tile regrouping (the same measure-zero tie caveat as
-    sorting itself).
-
-    key_mode: the coherence key.  "morton" (default) = origin Morton code +
-    direction octant (_ray_sort_key); "chunk" = the previous bounce's
-    WINNING CHUNK id (tracked in-kernel at one select per chunk — the
-    zero-cost byproduct key from docs/DESIGN_binning.md); "chunk_oct" =
-    chunk id with the direction octant in the low 3 bits.
-
-    sub: 0 = chunk-level culling only; 8/16 = second-level sub-box
-    cond-skip inside live chunks (bit-identical — see _trace_bounce),
-    the large-scene default (dispatch.wave_params).
-
-    lean (default): drop the two redundant coherence-sort operands
-    (`active`, which is rebuilt from the sorted key, and `pdy`, which is
-    applied after the pixel-order restore instead) — 12 operands per sort
-    instead of 14, BIT-IDENTICAL output by construction (see
-    stream_bounces; asserted by test_lean_sort_bit_identical).  Measured
-    +3.3% on suzanne 512² b8 (tools/exp_r5_overhead.py); lean=False keeps
-    the r4 14-operand payload for A/B.
-
-    skip_last_sort: skip the re-sort before the final bounce launch WHEN
-    that launch is a short remainder (< sort_every bounces) — the sort
-    costs a full stream sort but benefits fewer bounces than every other
-    sort in the schedule.  Self-limiting: at `sort_every=1` or when the
-    final launch is full-length the knob is a no-op (removing one of two
-    sorts at 720p b5 measured -16% — tools/exp_r5_overhead.py).  Changes
-    only tile regrouping — same measure-zero exact-t tie caveat as
-    sorting itself."""
-    tab, mats, chunks, subs, m, n_chunks = pack_tri_table(
-        scene, chunk, split_big=split_big, sub=max(sub, 8))
-    row0_arr = (jnp.zeros((1, 1), jnp.int32) if row0 is None
-                else jnp.asarray(row0, jnp.int32).reshape(1, 1))
-    eye = cam_row[0, 0:3]
-    centroid = (chunks[:, 0:3] + chunks[:, 3:6]) * 0.5
-    dist = jnp.sum((centroid - eye) ** 2, axis=1)
-    order = jnp.argsort(dist).astype(jnp.int32)[:, None]   # (n_chunks, 1)
-    n_mats = mats.shape[0]
-
-    track_chunk = key_mode != "morton"
-    common = dict(n_chunks=n_chunks, chunk=chunk, n_mats=n_mats,
-                  normalize_reflect_in=normalize_reflect_in,
-                  has_metal=has_metal, has_dielectric=has_dielectric,
-                  unroll=unroll, unroll_tree=unroll_tree,
-                  track_chunk=track_chunk, sub=sub)
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    vmem = pl.BlockSpec(memory_space=pltpu.VMEM)
-
-    n_frames = time.shape[0]
-    nh = height_pad // th
-    n = n_frames * height_pad * width_pad
-    rows = n // tw
-    n_tiles = rows // th
-    seg = sort_segments
-    assert n_tiles % seg == 0, \
-        f"sort_segments={seg} must divide the {n_tiles}-tile stream"
-
-    # scene bounds for the sort key (from the chunk AABBs)
-    lo = jnp.min(chunks[:, 0:3], axis=0)
-    inv_span = 1.0 / jnp.maximum(jnp.max(chunks[:, 3:6], axis=0) - lo, 1e-30)
-
-    ray_specs = (pl.BlockSpec((9, th, tw), lambda i: (0, i, 0),
-                              memory_space=pltpu.VMEM),
-                 pl.BlockSpec((th, tw), lambda i: (i, 0),
-                              memory_space=pltpu.VMEM),
-                 pl.BlockSpec((th, tw), lambda i: (i, 0),
-                              memory_space=pltpu.VMEM))
-
-    def bounce_call(nb, *operands):
-        kernel = functools.partial(_wave_bounce_kernel, th=th, tw=tw,
-                                   n_bounces=nb, **common)
-        out_shape = (jax.ShapeDtypeStruct((9, rows, tw), jnp.float32),
-                     jax.ShapeDtypeStruct((rows, tw), jnp.uint32),
-                     jax.ShapeDtypeStruct((rows, tw), jnp.int32))
-        out_specs = ray_specs
-        if track_chunk:
-            out_shape += (jax.ShapeDtypeStruct((rows, tw), jnp.int32),)
-            out_specs += (ray_specs[2],)
-        return pl.pallas_call(
-            kernel,
-            out_shape=out_shape,
-            grid=(rows // th,),
-            in_specs=[vmem, smem, vmem, vmem,
-                      # per-TILE chunk visit order: flattened
-                      # (n_tiles*n_chunks, 1) column in VMEM; each grid step
-                      # reads its own segment at program_id * n_chunks
-                      vmem,
-                      *ray_specs],
-            out_specs=out_specs,
-            # donate the ray payload: inputs 5/6/7 (pay, state, active)
-            # update in place as outputs 0/1/2
-            input_output_aliases={5: 0, 6: 1, 7: 2},
-            interpret=interpret)(*operands)
-
-    def stream_key(pay, active, wch):
-        if key_mode == "morton":
-            return _ray_sort_key(pay[0:3], pay[3:6], lo, inv_span, active,
-                                 bits=key_bits, dir_bits=key_dir_bits,
-                                 dmajor=key_dmajor)
-        if key_mode == "chunk_oct2":
-            # 2 direction bits/axis below the winning-chunk id: rays on the
-            # same surface chunk subdivide by outgoing direction QUADRANT,
-            # tightening the next bounce's tile frusta beyond the octant
-            qd = [jnp.clip((pay[3 + c] + 1.0) * 2.0, 0.0,
-                           3.0).astype(jnp.uint32) for c in range(3)]
-            key = (wch.astype(jnp.uint32) << 6) \
-                | (qd[0] << 4) | (qd[1] << 2) | qd[2]
-        else:
-            key = wch.astype(jnp.uint32) << 3
-            if key_mode == "chunk_oct":
-                key = key | (((pay[3] > 0).astype(jnp.uint32) << 2)
-                             | ((pay[4] > 0).astype(jnp.uint32) << 1)
-                             | (pay[5] > 0).astype(jnp.uint32))
-        return jnp.where(active > 0, key, jnp.uint32(0xFFFFFFFF))
-
-    def stream_bounces(pay, state, active, pix, pdy, wch, b_start,
-                       b_end=None):
-        """Bounces b_start..b_end-1 over the ray stream, re-sorting every
-        ``sort_every`` launches (never before b_start itself when it's 0 —
-        primary rays are already pixel-coherent)."""
-        b_stop = bounces if b_end is None else b_end
-        for b in range(b_start, b_stop, sort_every):
-            nb = min(sort_every, b_stop - b)
-            if sort and b > 0 and not (skip_last_sort
-                                       and b + sort_every >= bounces
-                                       and bounces - b < sort_every):
-                # ONE variadic sort moves the whole payload with the key —
-                # measured ~10x cheaper than argsort + per-array gathers
-                # (XLA TPU gathers at element granularity are the bottleneck)
-                key = stream_key(pay, active, wch)
-                if lean:
-                    # lean payload: `active` is redundant with the key
-                    # (0xFFFFFFFF iff dead — every key_mode; live morton
-                    # keys use <=30 bits, live chunk keys <= n_chunks<<6),
-                    # so it is rebuilt from the sorted key instead of
-                    # riding the sort; `pdy` never rides at all — the sky
-                    # factor is applied AFTER the pixel-order restore from
-                    # the pixel-ordered primary plane (elementwise ops
-                    # commute with permutations bit-exactly).  12 operands
-                    # instead of 14 per coherence sort.
-                    ops = _seg_sort(
-                        (key, *(pay[i] for i in range(9)), state, pix), seg)
-                    pay = jnp.stack(ops[1:10])
-                    state, pix = ops[10], ops[11]
-                    active = (ops[0] != jnp.uint32(0xFFFFFFFF)).astype(
-                        jnp.int32)
-                else:
-                    ops = _seg_sort(
-                        (key, *(pay[i] for i in range(9)), state, active,
-                         pix, pdy),
-                        seg)
-                    pay = jnp.stack(ops[1:10])
-                    state, active, pix, pdy = ops[10:14]
-            # per-tile front-to-back chunk order from each tile's mean ray
-            # origin — secondary tiles sit anywhere in the scene, so the
-            # camera-based global order would defeat the `tmin < best_t`
-            # rejection.  Visit order never changes the closest hit (strict
-            # t < best), only how early far chunks get rejected.
-            mo = pay[0:3].reshape(3, n_tiles, th * tw).mean(axis=2)
-            tdist = jnp.sum((centroid[None, :, :] - mo.T[:, None, :]) ** 2,
-                            axis=2)                      # (n_tiles, n_chunks)
-            tile_order = jnp.argsort(tdist, axis=1).astype(
-                jnp.int32).reshape(-1, 1)            # (n_tiles*n_chunks, 1)
-            outs = bounce_call(
-                nb, tab, mats, chunks, subs, tile_order,
-                pay.reshape(9, rows, tw),
-                state.reshape(rows, tw), active.reshape(rows, tw))
-            pay = outs[0].reshape(9, n)
-            state = outs[1].reshape(n)
-            active = outs[2].reshape(n)
-            if track_chunk:
-                wch = outs[3].reshape(n)
-        return pay, state, active, pix, pdy, wch
-
-    def stream_color(pay, pix, pdy):
-        # color = atten * sky(primary dy) (tc.sky_times_atten, elementwise);
-        # sky_from_final_dir (extension) reads the final direction's y from
-        # the payload instead of the carried primary dy.
-        # pix is a permutation of arange(n): ONE variadic sort keyed on it
-        # restores pixel order BIT-IDENTICALLY to the scatter it replaces
-        # (unique keys — stability is moot) at ~half the cost: TPU element
-        # scatters measured 54 ms vs 27 ms for a same-payload sort at 942K
-        # keys, 7.0 vs 4.3 ms at 262K (tools/exp_scatter_sort.py).
-        # Segment-local restore is exact: each segment holds its own
-        # contiguous pix block (see _seg_sort).
-        if lean:
-            # `pdy` here is the PIXEL-ORDERED primary plane (it never rode
-            # the coherence sorts): restore atten (and the final dir's y
-            # when sky_from_final_dir) first, multiply by sky afterwards —
-            # bit-identical, elementwise ops commute with permutations.
-            planes = (pay[6], pay[7], pay[8]) + (
-                (pay[4],) if sky_from_final_dir else ())
-            ops = _seg_sort((pix, *planes), seg)
-            col = tc.sky_times_atten(
-                ops[4] if sky_from_final_dir else pdy,
-                (ops[1], ops[2], ops[3]))
-            return jnp.stack(col)                        # (3, n)
-        atten = (pay[6], pay[7], pay[8])
-        col = tc.sky_times_atten(pay[4] if sky_from_final_dir else pdy,
-                                 atten)
-        ops = _seg_sort((pix, *col), seg)
-        return jnp.stack(ops[1:4])                       # (3, n)
-
-    if spp == 1:
-        first = functools.partial(
-            _wave_first_kernel, height=height, width=width, th=th, tw=tw,
-            normalize_defocus_dir=normalize_defocus_dir, **common)
-        plane = lambda dt: jax.ShapeDtypeStruct(
-            (n_frames * height_pad, width_pad), dt)
-        plane_spec = pl.BlockSpec((th, tw), lambda f, i, j: (f * nh + i, j),
-                                  memory_space=pltpu.VMEM)
-        out_shape = (jax.ShapeDtypeStruct(
-                         (10, n_frames * height_pad, width_pad),
-                         jnp.float32),
-                     plane(jnp.uint32), plane(jnp.int32))
-        out_specs = (pl.BlockSpec((10, th, tw),
-                                  lambda f, i, j: (0, f * nh + i, j),
-                                  memory_space=pltpu.VMEM),
-                     plane_spec, plane_spec)
-        if track_chunk:
-            out_shape += (plane(jnp.int32),)
-            out_specs += (plane_spec,)
-        outs = pl.pallas_call(
-            first,
-            out_shape=out_shape,
-            grid=(n_frames, nh, width_pad // tw),
-            in_specs=[vmem, smem, vmem, vmem, vmem, smem, smem, smem],
-            out_specs=out_specs,
-            interpret=interpret,
-        )(tab, mats, chunks, subs, order, cam_row, time, row0_arr)
-        payf, state, active = outs[0], outs[1], outs[2]
-        wch = outs[3].reshape(n) if track_chunk else None
-
-        payf = payf.reshape(10, n)
-        pay, pdy = payf[0:9], payf[9]
-        state = state.reshape(n)
-        active = active.reshape(n)
-        pix = jnp.arange(n, dtype=jnp.int32)
-        pay, state, active, pix, pdy, _ = stream_bounces(pay, state, active,
-                                                         pix, pdy, wch, 1)
-        img = stream_color(pay, pix, pdy)
-        img = img.reshape(3, n_frames, height_pad, width_pad)
-        return jnp.moveaxis(img, 1, 0)                   # (F, 3, Hp, Wp)
-
-    # ---- spp > 1: primary rays once, spp full bounce pipelines with the
-    # RNG state threaded across samples in pixel order ----------------------
-    raygen = functools.partial(
-        _wave_raygen_kernel, height=height, width=width, th=th, tw=tw,
-        normalize_defocus_dir=normalize_defocus_dir)
-    od, pdy0, state0 = pl.pallas_call(
-        raygen,
-        out_shape=(jax.ShapeDtypeStruct(
-                       (6, n_frames * height_pad, width_pad), jnp.float32),
-                   jax.ShapeDtypeStruct((n_frames * height_pad, width_pad),
-                                        jnp.float32),
-                   jax.ShapeDtypeStruct((n_frames * height_pad, width_pad),
-                                        jnp.uint32)),
-        grid=(n_frames, nh, width_pad // tw),
-        in_specs=[smem, smem, smem],
-        out_specs=(pl.BlockSpec((6, th, tw),
-                                lambda f, i, j: (0, f * nh + i, j),
-                                memory_space=pltpu.VMEM),
-                   pl.BlockSpec((th, tw), lambda f, i, j: (f * nh + i, j),
-                                memory_space=pltpu.VMEM),
-                   pl.BlockSpec((th, tw), lambda f, i, j: (f * nh + i, j),
-                                memory_space=pltpu.VMEM)),
-        interpret=interpret,
-    )(cam_row, time, row0_arr)
-    od = od.reshape(6, n)
-    pdy0 = pdy0.reshape(n)
-    state0 = state0.reshape(n)
-    ones3 = jnp.ones((3, n), jnp.float32)
-    pix0 = jnp.arange(n, dtype=jnp.int32)
-
-    def sample_body(carry, _):
-        state_px, acc = carry
-        pay = jnp.concatenate([od, ones3])
-        active = jnp.ones((n,), jnp.int32)
-        if solo_bounce0:
-            # phase-shift the per-sample schedule to [1, sort_every, ...]:
-            # bounce 0 launches ALONE on the pixel-coherent primary rays,
-            # so the first coherence sort lands right after the first
-            # scatter — the same phase the spp=1 path gets from its fused
-            # first kernel.  [2,2,1]-style schedules instead run bounce 1
-            # on UNSORTED scattered rays.  Tile-regrouping-only change
-            # (same tie caveat as sorting).
-            pay, state, active, pix, pdy, wch = stream_bounces(
-                pay, state_px, active, pix0, pdy0, None, 0, 1)
-            pay, state, active, pix, pdy, _ = stream_bounces(
-                pay, state, active, pix, pdy, wch, 1)
-        else:
-            pay, state, active, pix, pdy, _ = stream_bounces(
-                pay, state_px, active, pix0, pdy0, None, 0)
-        # restore ATTEN to pixel order first and multiply by the sky
-        # afterwards: keeps the trailing multiply-add adjacent so XLA
-        # contracts it into the same fma as the monolithic kernel's in-loop
-        # `acc + sky*atten` — bit-identical accumulation across backends.
-        # The restore is ONE variadic sort keyed on pix (a permutation of
-        # arange(n) — unique keys, so bit-identical to the scatters it
-        # replaces) carrying atten AND the RNG state: measured ~2x cheaper
-        # than element scatters, and it merges the separate state scatter
-        # into the same pass (tools/exp_scatter_sort.py).
-        planes = [pay[6], pay[7], pay[8]]
-        if sky_from_final_dir:
-            planes.append(pay[4])
-        ops = _seg_sort((pix, *planes, state), seg)
-        px = ops[1:1 + len(planes)]
-        col = jnp.stack(tc.sky_times_atten(
-            px[3] if sky_from_final_dir else pdy0, (px[0], px[1], px[2])))
-        # the RNG state rides the same sort, back in pixel order
-        state_px = ops[1 + len(planes)]
-        return (state_px, acc + col), None
-
-    (_, acc), _ = jax.lax.scan(
-        sample_body, (state0, jnp.zeros((3, n), jnp.float32)), None,
-        length=spp)
-    # true divide (not reciprocal-multiply) to match the oracle's /spp
-    img = (acc / jnp.float32(spp)).reshape(3, n_frames, height_pad,
-                                           width_pad)
-    return jnp.moveaxis(img, 1, 0)                       # (F, 3, Hp, Wp)
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "height", "width", "height_pad", "width_pad", "bounces",
-    "normalize_defocus_dir", "normalize_reflect_in", "th", "tw", "chunk",
-    "has_metal", "has_dielectric", "sky_from_final_dir", "unroll",
-    "unroll_tree", "interpret", "sort", "key_bits", "key_dir_bits",
-    "key_dmajor"))
-def render_color_tris_wave_record(scene, cam_row, time, *, height: int,
-                                  width: int, height_pad: int,
-                                  width_pad: int, bounces: int,
-                                  normalize_defocus_dir: bool,
-                                  normalize_reflect_in: bool,
-                                  th: int = 8, tw: int = 256,
-                                  chunk: int = CHUNK,
-                                  has_metal: bool = True,
-                                  has_dielectric: bool = True,
-                                  sky_from_final_dir: bool = False,
-                                  unroll: int = 1, unroll_tree: bool = False,
-                                  interpret: bool = False, sort: bool = True,
-                                  key_bits: int = 8, key_dir_bits: int = 1,
-                                  key_dmajor: bool = False):
-    """(color (3, Hp, Wp) f32, idx (bounces, Hp, Wp) i32 Morton-table order,
-    morton (m,) i32) — WAVEFRONT recording forward for path-replay gradients
-    (rt/grad/replay.py) on large meshes: the monolithic recorder pays the
-    camera-order whole-scene chunk scan per tile, while this one gets the
-    sorted-stream culling that makes lucy/dragon tractable on the device
-    path.  Single frame; one bounce per launch (per-bounce sorting) so each
-    launch emits exactly one idx plane, which then rides the subsequent
-    payload sorts like any other plane and is scattered back to pixel order
-    at the end.  The color plane is bit-identical to
-    render_color_tris_wave(..., sort_every=1) — same `_trace_bounce`
-    arithmetic; track_idx only adds selects on the extra index plane
-    (asserted in tests/test_replay.py)."""
-    tab, mats, chunks, subs, m, n_chunks = pack_tri_table(scene, chunk)
-    morton = _morton_order((scene.a + scene.b + scene.c) / 3.0)
-    eye = cam_row[0, 0:3]
-    centroid = (chunks[:, 0:3] + chunks[:, 3:6]) * 0.5
-    dist = jnp.sum((centroid - eye) ** 2, axis=1)
-    order = jnp.argsort(dist).astype(jnp.int32)[:, None]
-    n_mats = mats.shape[0]
-
-    common = dict(n_chunks=n_chunks, chunk=chunk, n_mats=n_mats,
-                  normalize_reflect_in=normalize_reflect_in,
-                  has_metal=has_metal, has_dielectric=has_dielectric,
-                  unroll=unroll, unroll_tree=unroll_tree, track_idx=True)
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    vmem = pl.BlockSpec(memory_space=pltpu.VMEM)
-
-    time = time.reshape(1, 1)
-    nh = height_pad // th
-    first = functools.partial(
-        _wave_first_kernel, height=height, width=width, th=th, tw=tw,
-        normalize_defocus_dir=normalize_defocus_dir, **common)
-    payf, state, active, idx0 = pl.pallas_call(
-        first,
-        out_shape=(jax.ShapeDtypeStruct((10, height_pad, width_pad),
-                                        jnp.float32),
-                   jax.ShapeDtypeStruct((height_pad, width_pad), jnp.uint32),
-                   jax.ShapeDtypeStruct((height_pad, width_pad), jnp.int32),
-                   jax.ShapeDtypeStruct((height_pad, width_pad), jnp.int32)),
-        grid=(1, nh, width_pad // tw),
-        in_specs=[vmem, smem, vmem, vmem, vmem, smem, smem, smem],
-        out_specs=(pl.BlockSpec((10, th, tw),
-                                lambda f, i, j: (0, f * nh + i, j),
-                                memory_space=pltpu.VMEM),
-                   pl.BlockSpec((th, tw), lambda f, i, j: (f * nh + i, j),
-                                memory_space=pltpu.VMEM),
-                   pl.BlockSpec((th, tw), lambda f, i, j: (f * nh + i, j),
-                                memory_space=pltpu.VMEM),
-                   pl.BlockSpec((th, tw), lambda f, i, j: (f * nh + i, j),
-                                memory_space=pltpu.VMEM)),
-        interpret=interpret,
-    )(tab, mats, chunks, subs, order, cam_row, time,
-      jnp.zeros((1, 1), jnp.int32))
-
-    n = height_pad * width_pad
-    rows = n // tw
-    payf = payf.reshape(10, n)
-    pay, pdy = payf[0:9], payf[9]
-    state = state.reshape(n)
-    active = active.reshape(n)
-    pix = jnp.arange(n, dtype=jnp.int32)
-    idxs = [idx0.reshape(n)]
-
-    lo = jnp.min(chunks[:, 0:3], axis=0)
-    inv_span = 1.0 / jnp.maximum(jnp.max(chunks[:, 3:6], axis=0) - lo, 1e-30)
-
-    n_tiles = rows // th
-    ray_specs = (pl.BlockSpec((9, th, tw), lambda i: (0, i, 0),
-                              memory_space=pltpu.VMEM),
-                 pl.BlockSpec((th, tw), lambda i: (i, 0),
-                              memory_space=pltpu.VMEM),
-                 pl.BlockSpec((th, tw), lambda i: (i, 0),
-                              memory_space=pltpu.VMEM))
-    idx_spec = pl.BlockSpec((1, th, tw), lambda i: (0, i, 0),
-                            memory_space=pltpu.VMEM)
-
-    kernel = functools.partial(_wave_bounce_kernel, th=th, tw=tw,
-                               n_bounces=1, **common)
-
-    for b in range(1, bounces):
-        if sort:
-            key = _ray_sort_key(pay[0:3], pay[3:6], lo, inv_span, active,
-                                bits=key_bits, dir_bits=key_dir_bits,
-                                dmajor=key_dmajor)
-            # the per-bounce idx planes ride the payload sort so they stay
-            # aligned with the stream; pix restores pixel order at the end
-            ops = jax.lax.sort(
-                (key, *(pay[i] for i in range(9)), state, active, pix, pdy,
-                 *idxs),
-                num_keys=1)
-            pay = jnp.stack(ops[1:10])
-            state, active, pix, pdy = ops[10:14]
-            idxs = list(ops[14:])
-        mo = pay[0:3].reshape(3, n_tiles, th * tw).mean(axis=2)
-        tdist = jnp.sum((centroid[None, :, :] - mo.T[:, None, :]) ** 2,
-                        axis=2)
-        tile_order = jnp.argsort(tdist, axis=1).astype(
-            jnp.int32).reshape(-1, 1)
-        payp, state2, active2, idxb = pl.pallas_call(
-            kernel,
-            out_shape=(jax.ShapeDtypeStruct((9, rows, tw), jnp.float32),
-                       jax.ShapeDtypeStruct((rows, tw), jnp.uint32),
-                       jax.ShapeDtypeStruct((rows, tw), jnp.int32),
-                       jax.ShapeDtypeStruct((1, rows, tw), jnp.int32)),
-            grid=(rows // th,),
-            in_specs=[vmem, smem, vmem, vmem, vmem, *ray_specs],
-            out_specs=(*ray_specs, idx_spec),
-            input_output_aliases={5: 0, 6: 1, 7: 2},
-            interpret=interpret)(
-                tab, mats, chunks, subs, tile_order,
-                pay.reshape(9, rows, tw),
-                state.reshape(rows, tw), active.reshape(rows, tw))
-        pay = payp.reshape(9, n)
-        state = state2.reshape(n)
-        active = active2.reshape(n)
-        idxs.append(idxb.reshape(n))
-
-    atten = (pay[6], pay[7], pay[8])
-    col = tc.sky_times_atten(pay[4] if sky_from_final_dir else pdy, atten)
-    # pixel-order restore via ONE variadic sort keyed on pix (permutation,
-    # unique keys → bit-identical to the scatters it replaces, ~2x cheaper;
-    # tools/exp_scatter_sort.py) carrying color AND all idx planes
-    ops = jax.lax.sort((pix, *col, *idxs), num_keys=1)
-    img = jnp.stack(ops[1:4])                            # (3, n)
-    idx_img = jnp.stack(ops[4:4 + bounces])
-    return (img.reshape(3, height_pad, width_pad),
-            idx_img.reshape(bounces, height_pad, width_pad),
-            morton.astype(jnp.int32))
-
-
-def _kernel_record(tri_ref, mat_ref, chunk_ref, sub_ref, order_ref, cam_ref,
-                   time_ref, out_ref, idx_ref, *,
-                   m: int, n_chunks: int, chunk: int, n_mats: int,
-                   height: int, width: int, th: int, tw: int, bounces: int,
-                   normalize_defocus_dir: bool, normalize_reflect_in: bool,
-                   has_metal: bool = True, has_dielectric: bool = True,
-                   sky_from_final_dir: bool = False):
-    """Recording variant of the monolithic kernel for path-replay gradients
-    (rt/grad/replay.py): same transport, plus the winning triangle index
-    per bounce (-1 on miss, Morton-clustered table order) in idx_ref.
-    Bounce loop Python-unrolled so every idx store has a static index."""
-    state, o, d, primary_dy = _tile_rays(
-        cam_ref, time_ref[0, 0], pl.program_id(0), pl.program_id(1), th=th,
-        tw=tw, height=height, width=width,
-        normalize_defocus_dir=normalize_defocus_dir)
-
-    zero = jnp.zeros((th, tw), jnp.float32)
-    one = zero + 1.0
-    carry = (state, o, d, (one, one, one), jnp.ones((th, tw), jnp.int32))
-
-    trace1 = functools.partial(
-        _trace_bounce, tri_ref, mat_ref, chunk_ref, sub_ref, order_ref, zero,
-        chunk=chunk, n_chunks=n_chunks, n_mats=n_mats,
-        normalize_reflect_in=normalize_reflect_in, has_metal=has_metal,
-        has_dielectric=has_dielectric, track_idx=True)
-
-    for b in range(bounces):
-        *carry, btid = trace1(carry)
-        carry = tuple(carry)
-        idx_ref[b] = btid
-
-    state, o, d, atten, active = carry
-    col = tc.sky_times_atten(d[1] if sky_from_final_dir else primary_dy,
-                             atten)
-    out_ref[0] = col[0]
-    out_ref[1] = col[1]
-    out_ref[2] = col[2]
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "height", "width", "height_pad", "width_pad", "bounces",
-    "normalize_defocus_dir", "normalize_reflect_in", "th", "tw", "chunk",
-    "has_metal", "has_dielectric", "sky_from_final_dir", "interpret"))
+    return _mono_call(
+        scene, cam_row, time, row0, height=height, width=width,
+        height_pad=height_pad, width_pad=width_pad, bounces=bounces,
+        normalize_defocus_dir=normalize_defocus_dir,
+        normalize_reflect_in=normalize_reflect_in, th=th, tw=tw,
+        num_warps=num_warps, chunk=chunk, unroll=unroll,
+        has_metal=has_metal, has_dielectric=has_dielectric,
+        sky_from_final_dir=sky_from_final_dir, spp=spp, interpret=interpret,
+        track_idx=False)
+
+
+@functools.partial(jax.jit, static_argnames=_STATIC)
 def render_color_tris_record(scene, cam_row, time, *, height: int,
                              width: int, height_pad: int, width_pad: int,
                              bounces: int, normalize_defocus_dir: bool,
-                             normalize_reflect_in: bool,
-                             th: int = 8, tw: int = 256, chunk: int = CHUNK,
-                             has_metal: bool = True,
+                             normalize_reflect_in: bool, th: int, tw: int,
+                             num_warps: int, chunk: int = CHUNK,
+                             unroll: int = 1, has_metal: bool = True,
                              has_dielectric: bool = True,
                              sky_from_final_dir: bool = False,
                              interpret: bool = False):
     """(color (3, Hp, Wp) f32, hit indices (bounces, Hp, Wp) i32, morton
     order (m,) i32) — forward render plus the per-bounce winning triangle
     index stream (in Morton-clustered TABLE order; the returned ``order``
-    array maps table rows back to scene triangle ids for the replay)."""
-    tab, mats, chunks, subs, m, n_chunks = pack_tri_table(scene, chunk)
+    array maps table rows back to scene triangle ids for the replay).  Same
+    kernel body as render_color_tris, so the color is bit-identical."""
+    color, idx = _mono_call(
+        scene, cam_row, time, None, height=height, width=width,
+        height_pad=height_pad, width_pad=width_pad, bounces=bounces,
+        normalize_defocus_dir=normalize_defocus_dir,
+        normalize_reflect_in=normalize_reflect_in, th=th, tw=tw,
+        num_warps=num_warps, chunk=chunk, unroll=unroll,
+        has_metal=has_metal, has_dielectric=has_dielectric,
+        sky_from_final_dir=sky_from_final_dir, interpret=interpret,
+        track_idx=True)
     morton = _morton_order((scene.a + scene.b + scene.c) / 3.0)
-    eye = cam_row[0, 0:3]
-    centroid = (chunks[:, 0:3] + chunks[:, 3:6]) * 0.5
-    dist = jnp.sum((centroid - eye) ** 2, axis=1)
-    order = jnp.argsort(dist).astype(jnp.int32)[:, None]
-    grid = (height_pad // th, width_pad // tw)
-    kernel = functools.partial(
-        _kernel_record, m=m, n_chunks=n_chunks, chunk=chunk,
-        n_mats=mats.shape[0], height=height, width=width, th=th, tw=tw,
-        bounces=bounces, normalize_defocus_dir=normalize_defocus_dir,
-        normalize_reflect_in=normalize_reflect_in, has_metal=has_metal,
-        has_dielectric=has_dielectric, sky_from_final_dir=sky_from_final_dir)
-    color, idx = pl.pallas_call(
-        kernel,
-        out_shape=(jax.ShapeDtypeStruct((3, height_pad, width_pad),
-                                        jnp.float32),
-                   jax.ShapeDtypeStruct((bounces, height_pad, width_pad),
-                                        jnp.int32)),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # triangle table
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # material table
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # chunk AABBs
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # sub-box AABBs
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # chunk visit order
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # camera
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # time
-        ],
-        out_specs=(pl.BlockSpec((3, th, tw), lambda i, j: (0, i, j),
-                                memory_space=pltpu.VMEM),
-                   pl.BlockSpec((bounces, th, tw), lambda i, j: (0, i, j),
-                                memory_space=pltpu.VMEM)),
-        interpret=interpret,
-    )(tab, mats, chunks, subs, order, cam_row, time)
     return color, idx, morton.astype(jnp.int32)

@@ -76,3 +76,22 @@ def compare_ppm(img1: str, img2: str, tolerance_percent: float = 2.0):
     avg = diff / len(p1)
     pct = avg / 255.0 * 100.0
     return pct <= tolerance_percent, float(pct)
+
+
+def parity_metrics(ref: np.ndarray, img: np.ndarray):
+    """(flip fraction, golden-metric MAE %) of ``img`` against ``ref``, two
+    (H, W, 3) f32 frames rendered from the same time uniform.
+
+    flip fraction: share of pixels whose color differs by more than 1e-6 —
+    a path that took another branch (FMA contraction and other last-bit
+    differences flip grazing hits and Schlick draws).  MAE: the reference's
+    golden metric on the u8 images (tests/rendering_tests.rs:84-131), mean
+    absolute difference as a percentage of 255."""
+    a = np.asarray(ref, np.float32)
+    b = np.asarray(img, np.float32)
+    if a.shape != b.shape:
+        raise ValueError(f"shape {b.shape} != {a.shape}")
+    flips = float((np.abs(a - b).max(-1) > 1e-6).mean())
+    qa = image_to_u8(a).astype(np.float64)
+    qb = image_to_u8(b).astype(np.float64)
+    return flips, float(np.abs(qa - qb).mean() / 255 * 100)

@@ -15,8 +15,8 @@ Functional replacement for the reference's Renderer (src/renderer.rs):
   ``ProgressiveRenderer.reset()``;
 - resize reallocates the accumulator and resets (renderer.rs:271-313).
 
-Backends: "jax" (pure-JAX oracle, runs on CPU/TPU) and "pallas"
-(fused TPU kernels from rt.kernels).
+Backends: "jax" (pure-JAX oracle, runs anywhere) and "pallas"
+(the fused GPU kernels of rt.kernels).
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ def render_color(scene, camera, config: RenderConfig, time):
 def render_frame(scene, camera, state: RenderState, time,
                  config: RenderConfig) -> RenderState:
     """draw(): trace every pixel once and EMA-accumulate."""
-    if config.backend in ("pallas", "pallas_wave", "pallas_mono"):
+    if config.backend == "pallas":
         from rt.kernels import dispatch as kernel_dispatch
         color = kernel_dispatch.render_color(scene, camera, config, time,
                                              interpret=config.interpret)
@@ -96,12 +96,6 @@ def render_frames(scene, camera, state: RenderState, time0, time_step,
     """
     time0 = jnp.asarray(time0, jnp.uint32)
     time_step = jnp.asarray(time_step, jnp.uint32)
-
-    # NOTE: batching F frames' rays into ONE wavefront stream
-    # (dispatch.render_color_frames) measured SLOWER than the per-frame
-    # scan (3.5e7 vs 5.2e7 seg/s at F=16): XLA's TPU sort is superlinear
-    # (0.8 -> 41 ms per 14-operand sort from 262K to 4.2M keys), which
-    # outruns the coherence/amortization gains.  PERF.md has the numbers.
 
     def step(state, i):
         t = time0 + i * time_step

@@ -128,8 +128,8 @@ def scene_sphere_cover(width=1280, height=720, seed: int = 7) -> SceneDef:
 
     The reference caps scenes at MAX_OBJECT_IN_SCENE=100
     (src/scene/scene_sphere.rs:15); this scene deliberately exceeds that cap
-    (BASELINE config 3 asks for the ~500-sphere cover at 1280x720) — the
-    sphere table moves to VMEM past 128 rows (rt/kernels/dispatch.py).
+    (BASELINE config 3 asks for the ~500-sphere cover at 1280x720) — past
+    128 spheres the kernel path culls chunks of them (rt/kernels/dispatch.py).
     Deterministic: driven by a seeded numpy Generator, like the globe scene.
     """
     rng = np.random.default_rng(seed)

@@ -1,4 +1,4 @@
-"""Interactive terminal viewer — the TPU-native stand-in for the reference's
+"""Interactive terminal viewer — the stand-in for the reference's
 winit window + egui debug panel (src/app.rs, src/gui.rs).
 
 The reference's interaction model, replicated headless:
@@ -140,10 +140,13 @@ def main(argv=None) -> int:
     p.add_argument("scene", nargs="?", default="1")
     p.add_argument("--size", default="160x90")
     p.add_argument("--backend",
-                   choices=["jax", "pallas", "pallas_mono", "pallas_wave"],
+                   choices=["jax", "pallas"],
                    default="jax")
     args = p.parse_args(argv)
     from rt.scene import scenes
+    from rt.utils import enable_compile_cache
+
+    enable_compile_cache()
     try:
         sid = int(args.scene)
     except ValueError:

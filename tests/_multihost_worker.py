@@ -82,28 +82,28 @@ for shard in shards:
 assert int(state.frame_count.addressable_shards[0].data) == 2
 print(f"rank {pid} OK ({len(shards)} row shards bitwise-equal)", flush=True)
 
-# PRODUCTION wavefront backend across the 2-process global mesh (r5): each
-# process shard_maps its local row bands' complete wave pipeline (raygen,
-# per-bounce Pallas kernels in interpret mode, coherence sorts, pixel-order
-# restore) and the addressable shards must equal the local unsharded wave
-# render bitwise — the multi-process form of tests/test_dist_wave.py.
-from rt.dist.wave import sharded_wave_render_frames  # noqa: E402
-from rt.kernels.dispatch import render_color_frames  # noqa: E402
+# the kernel render path across the 2-process global mesh: each process
+# shard_maps the triangle kernel (interpret mode) over its local row bands
+# and the addressable shards must equal the local unsharded kernel render
+# bitwise — the multi-process form of tests/test_dist_wave.py.
+from rt.dist.bands import sharded_band_render_frames  # noqa: E402
+from rt.kernels.dispatch import render_color as kernel_color  # noqa: E402
 
 tsd = scenes.scene_cube(128, 64)
-tcfg = dataclasses.replace(tsd.config, bounces=2, backend="pallas")
+tcfg = dataclasses.replace(tsd.config, bounces=2, backend="pallas",
+                           interpret=True)
 times = jnp.asarray([1000], jnp.uint32)
 
 
 @jax.jit
 def wave_colors():
-    return sharded_wave_render_frames(tsd.scene, tsd.camera, tcfg, times,
-                                      mesh, interpret=True)
+    return sharded_band_render_frames(tsd.scene, tsd.camera, tcfg, times,
+                                      mesh)
 
 
 colors = wave_colors()
-ref_colors = np.asarray(render_color_frames(tsd.scene, tsd.camera, tcfg,
-                                            times, interpret=True))
+ref_colors = np.asarray(kernel_color(tsd.scene, tsd.camera, tcfg,
+                                     times[0], interpret=True))[None]
 wshards = colors.addressable_shards
 assert len(wshards) == 4, len(wshards)
 for shard in wshards:

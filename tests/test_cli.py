@@ -98,9 +98,9 @@ def test_sharded_render_matches_unsharded(tmp_path):
 
 
 def test_sharded_wave_cli_matches_unsharded(tmp_path):
-    """--sharded --backend pallas on a triangle scene drives the shard_mapped
-    wavefront pipeline (rt/dist/wave.py) from the app shell; its PPM equals
-    the unsharded wavefront render bitwise (VERDICT r4 item 7)."""
+    """--sharded --backend pallas on a triangle scene runs the kernel on
+    every device's row band (rt/dist/bands.py) from the app shell; its PPM
+    equals the unsharded kernel render bitwise."""
     out_s = tmp_path / "s.ppm"
     out_u = tmp_path / "u.ppm"
     args = ["--scene", "3", "--frames", "2", "--size", "32x32",
@@ -111,17 +111,17 @@ def test_sharded_wave_cli_matches_unsharded(tmp_path):
 
 
 def test_sharded_pallas_sphere_fails_loudly(tmp_path):
-    """--sharded + pallas on a sphere scene (or pallas_mono anywhere) has no
-    shard_mapped production path — exit 2 before rendering, never a silent
-    fallback."""
+    """--sharded + pallas on a sphere scene has no row-band kernel path,
+    and a height that does not divide by the device count has no bands —
+    exit 2 before rendering, never a silent fallback."""
     out = tmp_path / "out.ppm"
     rc = run_cli(["--scene", "1", "--frames", "1", "--size", "32x32",
                   "--backend", "pallas", "--interpret", "--sharded",
                   "-o", str(out)])
     assert rc == 2
     assert not out.exists()
-    rc = run_cli(["--scene", "3", "--frames", "1", "--size", "32x32",
-                  "--backend", "pallas_mono", "--interpret", "--sharded",
+    rc = run_cli(["--scene", "3", "--frames", "1", "--size", "32x30",
+                  "--backend", "pallas", "--interpret", "--sharded",
                   "-o", str(out)])
     assert rc == 2
     assert not out.exists()

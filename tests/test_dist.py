@@ -82,7 +82,7 @@ def test_sharded_train_step_runs(mesh):
 
 
 def test_sample_sharded_render_matches_sequential(mesh):
-    """SP mode: 8 devices, one time uniform each, pmean over ICI == the
+    """SP mode: 8 devices, one time uniform each, pmean over the mesh == the
     uniform average of 8 sequential single-frame renders."""
     from rt.dist.sharding import sample_sharded_render
     from rt.render.renderer import render_color

@@ -230,7 +230,7 @@ def test_soft_camera_fov_recovery():
 
 
 # ---------------------------------------------------------------------------
-# Geometry gradients (VERDICT r1 item 4 / BASELINE acceptance: FD-verified
+# Geometry gradients (BASELINE acceptance: FD-verified
 # pixel gradients w.r.t. camera / material / GEOMETRY).
 #
 # Under the reference transport color = prod(albedo*0.7) * sky(PRIMARY dir)
@@ -332,7 +332,7 @@ def test_finite_difference_sphere_geometry_final_dir_sky():
 def test_finite_difference_camera_with_geometry_final_dir_sky():
     """Camera FD no longer needs the empty-scene dodge: under final-dir sky
     the pose gradient flows through every bounce chain, so verify it WITH
-    geometry present (VERDICT r1 'what's weak' #4), on eroded interiors."""
+    geometry present, on eroded interiors."""
     sd = _final_dir_cfg(scenes.test_scene_metal(W, H))
     mask = _interior_mask(sd)
     target = render_color_diff(sd.scene, sd.camera, sd.config,

@@ -1,6 +1,6 @@
 """Pallas-kernel correctness: interpret-mode (CPU) parity against the
 pure-JAX oracle, which itself has bit-exact golden parity with the reference
-GPU renderer — so agreement here transfers golden correctness to the TPU
+GPU renderer — so agreement here transfers golden correctness to the
 kernel path.
 
 Tolerance: almost all pixels agree to a few ULP; a handful of grazing-hit /
@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 from rt.kernels.dispatch import render_color as k_render
+from rt.render.ppm import parity_metrics
 from rt.render.renderer import render_color
 from rt.scene import scenes
 
@@ -33,9 +34,7 @@ def _compare(sd, bounces, max_flip_frac=0.08, max_mae_pct=0.3, spp=1):
     b = np.asarray(k_render(sd.scene, sd.camera, sd.config, t,
                             interpret=True))
     assert a.shape == b.shape == (sd.config.height, sd.config.width, 3)
-    flips = (np.abs(a - b).max(-1) > 1e-6).mean()
-    q = lambda im: np.clip(im * 255, 0, 255).astype(np.uint8).astype(np.float64)
-    mae_pct = np.abs(q(a) - q(b)).mean() / 255 * 100
+    flips, mae_pct = parity_metrics(a, b)
     assert flips <= max_flip_frac, f"{flips:.2%} pixels flipped branches"
     assert mae_pct <= max_mae_pct, f"golden-metric {mae_pct:.3f}%"
 
@@ -76,27 +75,6 @@ def test_tris_kernel_suzanne_chunked():
     _compare(scenes.scene_suzanne(W, H), bounces=2)
 
 
-@pytest.mark.parametrize("builder", [scenes.scene_quad,
-                                     scenes.scene_suzanne])
-def test_wavefront_equals_monolithic(builder):
-    """The wavefront backend (per-bounce kernels + coherence-sorted ray
-    streams) must be BIT-IDENTICAL to the monolithic kernel: same bounce
-    body, per-lane results order-independent up to exact-t ties — sorting
-    only regroups rays into tiles and the final scatter restores pixel
-    order.  Caveat: bounces >= 1 visit chunks in a per-TILE front-to-back
-    order (not the monolithic kernel's camera-eye order), so a cross-chunk
-    EXACT-t tie could in principle resolve differently (measure-zero; the
-    golden-metric tests are the backstop)."""
-    sd = builder(64, 32)
-    t = jnp.uint32(1000)
-    cfg = dataclasses.replace(sd.config, bounces=3,
-                              backend="pallas_mono")
-    a = np.asarray(k_render(sd.scene, sd.camera, cfg, t, interpret=True))
-    cfg_w = dataclasses.replace(cfg, backend="pallas_wave")
-    b = np.asarray(k_render(sd.scene, sd.camera, cfg_w, t, interpret=True))
-    np.testing.assert_array_equal(a, b)
-
-
 def test_sphere_kernel_spp_matches_oracle():
     """samples_per_frame > 1: the in-kernel sample loop (same primary ray,
     RNG state threaded across samples, true-divide average) matches the
@@ -105,59 +83,24 @@ def test_sphere_kernel_spp_matches_oracle():
     _compare(scenes.test_scene_metal(W, H), bounces=4, spp=3)
 
 
-@pytest.mark.parametrize("backend", ["pallas_mono", "pallas"])
-def test_tris_kernel_spp_matches_oracle(backend):
-    """spp loop in the monolithic triangle kernel and the wavefront
-    pipeline (per-sample stream passes with pixel-order state threading)."""
-    sd = scenes.scene_cube(W, H)
-    sd = dataclasses.replace(
-        sd, config=dataclasses.replace(sd.config, backend=backend))
-    _compare(sd, bounces=3, spp=3)
+@pytest.mark.parametrize("builder", [scenes.scene_cube,
+                                     scenes.scene_suzanne])
+def test_tris_kernel_spp_matches_oracle(builder):
+    """spp loop in the triangle kernel (same primary ray, RNG state
+    threaded across samples) matches the oracle's sample loop."""
+    _compare(builder(W, H), bounces=3, spp=3)
 
 
-def test_wave_spp_equals_mono_spp():
-    """At spp > 1 the wavefront sample loop (state scattered back to pixel
-    order between samples) is bit-identical to the monolithic kernel's
-    in-kernel sample loop."""
-    sd = scenes.scene_cube(64, 32)
-    t = jnp.uint32(1000)
-    cfg = dataclasses.replace(sd.config, bounces=3, samples_per_frame=3,
-                              backend="pallas_mono")
-    a = np.asarray(k_render(sd.scene, sd.camera, cfg, t, interpret=True))
-    cfg_w = dataclasses.replace(cfg, backend="pallas_wave")
-    b = np.asarray(k_render(sd.scene, sd.camera, cfg_w, t, interpret=True))
-    np.testing.assert_array_equal(a, b)
-
-
-def test_framebatched_wave_equals_single_frames():
-    """F frames traced as ONE wavefront stream == F single-frame calls,
-    bitwise (rays never interact; the sort only regroups them)."""
-    from rt.kernels.dispatch import render_color_frames
-    sd = scenes.scene_cube(64, 32)
-    cfg = dataclasses.replace(sd.config, bounces=3, backend="pallas")
-    times = jnp.uint32(1000) + jnp.arange(3, dtype=jnp.uint32) * 10
-    batch = np.asarray(render_color_frames(sd.scene, sd.camera, cfg, times,
-                                           interpret=True))
-    assert batch.shape == (3, 32, 64, 3)
-    for i in range(3):
-        single = np.asarray(k_render(sd.scene, sd.camera, cfg,
-                                     jnp.uint32(1000 + 10 * i),
-                                     interpret=True))
-        np.testing.assert_array_equal(batch[i], single)
-
-
-def test_wavefront_nonaligned_resolution():
-    """Wave path: odd sizes pad to (32, 256) stream tiles and crop back —
-    bit-identical to the monolithic kernel (the oracle comparison keeps its
-    usual FMA-flip tolerance via the golden-metric tests)."""
+def test_tris_kernel_nonaligned_resolution():
+    """Triangle kernel: odd sizes pad to whole blocks and crop back."""
     sd = scenes.scene_cube(60, 28)
+    sd = dataclasses.replace(
+        sd, config=dataclasses.replace(sd.config, bounces=3))
     t = jnp.uint32(1000)
-    cfg_m = dataclasses.replace(sd.config, bounces=3, backend="pallas_mono")
-    a = np.asarray(k_render(sd.scene, sd.camera, cfg_m, t, interpret=True))
-    cfg_w = dataclasses.replace(cfg_m, backend="pallas")
-    b = np.asarray(k_render(sd.scene, sd.camera, cfg_w, t, interpret=True))
+    b = np.asarray(k_render(sd.scene, sd.camera, sd.config, t,
+                            interpret=True))
     assert b.shape == (28, 60, 3)
-    np.testing.assert_array_equal(a, b)
+    _compare(sd, bounces=3)
 
 
 def test_nonaligned_resolution_padding():
@@ -205,8 +148,8 @@ def test_sphere_chunked_equals_flat_bitwise():
     divergence (measure-zero; none in this scene)."""
     import dataclasses as dc
 
-    from rt.kernels.dispatch import pack_camera, pack_spheres_table, \
-        _round_up
+    from rt.kernels.dispatch import (block_grid, pack_camera,
+                                     pack_spheres_table)
     from rt.kernels.sphere_kernel import (pack_spheres_chunked,
                                           render_color_spheres,
                                           render_color_spheres_chunked)
@@ -216,27 +159,25 @@ def test_sphere_chunked_equals_flat_bitwise():
     cam_row = pack_camera(sd.camera)
     t = jnp.uint32(1000).reshape(1, 1)
     h, w = cfg.height, cfg.width
-    th = min(16, _round_up(h, 8))
-    tw = min(256, _round_up(w, 128))
-    common = dict(height=h, width=w, height_pad=_round_up(h, th),
-                  width_pad=_round_up(w, tw), bounces=cfg.bounces,
+    common = dict(height=h, width=w, bounces=cfg.bounces,
                   normalize_defocus_dir=cfg.normalize_defocus_dir,
                   normalize_reflect_in=cfg.normalize_reflect_in,
-                  th=th, tw=tw, interpret=True)
+                  interpret=True, **block_grid(h, w))
     a = np.asarray(render_color_spheres_chunked(
         tab, kinds, cam_row, t, n_spheres=n, unroll=1, **common))
     # flat scan over the identical Morton-ordered padded table (padding rows
     # are deterministic misses: radius -1e30 makes the candidate t -inf)
     sph, kk, _, n_pad, _ = pack_spheres_chunked(tab, kinds, n)
     b = np.asarray(render_color_spheres(
-        sph, kk, cam_row, t, n_spheres=n_pad, table_in_vmem=True, **common))
+        sph, kk, cam_row, t, n_spheres=n_pad, **common))
     np.testing.assert_array_equal(a, b)
 
 
 def test_sphere_flat_unroll_all_bit_identical():
     """Fully unrolling the small-scene flat sphere scan (a Python loop
     instead of fori_loop, same ascending order) is bit-identical."""
-    from rt.kernels.dispatch import pack_camera, pack_spheres_table
+    from rt.kernels.dispatch import (block_grid, pack_camera,
+                                     pack_spheres_table)
     from rt.kernels.sphere_kernel import render_color_spheres
     sd = scenes.scene_sphere_simple(W, H)
     tab, kinds, n = pack_spheres_table(sd.scene)
@@ -244,11 +185,10 @@ def test_sphere_flat_unroll_all_bit_identical():
         n = sd.config.n_active_spheres
     cam_row = pack_camera(sd.camera)
     t = jnp.uint32(1000).reshape(1, 1)
-    common = dict(n_spheres=n, height=H, width=W, height_pad=32,
-                  width_pad=256, bounces=6,
+    common = dict(n_spheres=n, height=H, width=W, bounces=6,
                   normalize_defocus_dir=sd.config.normalize_defocus_dir,
                   normalize_reflect_in=sd.config.normalize_reflect_in,
-                  th=16, tw=256, interpret=True)
+                  interpret=True, **block_grid(H, W))
     a = np.asarray(render_color_spheres(tab, kinds, cam_row, t, **common))
     b = np.asarray(render_color_spheres(tab, kinds, cam_row, t,
                                         unroll_all=True, **common))
@@ -258,17 +198,17 @@ def test_sphere_flat_unroll_all_bit_identical():
 def test_sphere_chunked_unroll_bit_identical():
     """Sphere-scan unrolling is a pure scheduling change (ascending order
     within the chunk is preserved) — bit-identical to unit stride."""
-    from rt.kernels.dispatch import pack_camera, pack_spheres_table
+    from rt.kernels.dispatch import (block_grid, pack_camera,
+                                     pack_spheres_table)
     from rt.kernels.sphere_kernel import render_color_spheres_chunked
     sd = scenes.scene_sphere_cover(W, H)
     tab, kinds, n = pack_spheres_table(sd.scene)
     cam_row = pack_camera(sd.camera)
     t = jnp.uint32(1000).reshape(1, 1)
-    common = dict(n_spheres=n, height=H, width=W, height_pad=32,
-                  width_pad=256, bounces=4,
+    common = dict(n_spheres=n, height=H, width=W, bounces=4,
                   normalize_defocus_dir=sd.config.normalize_defocus_dir,
                   normalize_reflect_in=sd.config.normalize_reflect_in,
-                  th=16, tw=256, interpret=True)
+                  interpret=True, **block_grid(H, W))
     a = np.asarray(render_color_spheres_chunked(tab, kinds, cam_row, t,
                                                 unroll=1, **common))
     b = np.asarray(render_color_spheres_chunked(tab, kinds, cam_row, t,
@@ -276,98 +216,61 @@ def test_sphere_chunked_unroll_bit_identical():
     np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("kw", [dict(unroll=2), dict(unroll=4),
-                                dict(unroll=32),
-                                dict(unroll=4, unroll_tree=True)])
-def test_unroll_variants_bit_identical(kw):
-    """Triangle-scan unrolling (sequential or tree-merged candidates) is a
-    pure scheduling change: strict t < best with ascending-index merge keeps
-    results BIT-IDENTICAL to the unit-stride scan."""
-    from rt.kernels.dispatch import pack_camera
-    from rt.kernels.tris_kernel import render_color_tris_wave
+@pytest.mark.parametrize("unroll", [2, 4, 8, 32])
+def test_unroll_variants_bit_identical(unroll):
+    """Triangle-scan unrolling is a pure scheduling change: strict t < best
+    in ascending index order keeps results BIT-IDENTICAL to the unit-stride
+    scan."""
+    from rt.kernels.dispatch import block_grid, pack_camera
+    from rt.kernels.tris_kernel import render_color_tris
     sd = scenes.scene_suzanne(64, 32)
     cam_row = pack_camera(sd.camera)
     t = jnp.uint32(1000).reshape(1, 1)
-    common = dict(height=32, width=64, height_pad=32, width_pad=256,
-                  bounces=3, normalize_defocus_dir=True,
-                  normalize_reflect_in=False, th=32, tw=256, chunk=32,
-                  interpret=True)
-    a = np.asarray(render_color_tris_wave(sd.scene, cam_row, t, **common))
-    b = np.asarray(render_color_tris_wave(sd.scene, cam_row, t, **common,
-                                          **kw))
+    common = dict(height=32, width=64, bounces=3, normalize_defocus_dir=True,
+                  normalize_reflect_in=False, chunk=32, interpret=True,
+                  **block_grid(32, 64))
+    a = np.asarray(render_color_tris(sd.scene, cam_row, t, **common))
+    b = np.asarray(render_color_tris(sd.scene, cam_row, t, unroll=unroll,
+                                     **common))
     np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("sub", [8, 16])
-def test_sub_culling_bit_identical(sub):
-    """In-chunk sub-AABB culling (r5 large-scene lever) only rejects boxes
-    no lane can improve in, in unchanged ascending order — bit-identical to
-    the plain chunk scan on both triangle backends.  Compared as u32 bit
-    patterns: padding regions hold NaNs, and NaN != NaN would mask a true
-    bitwise match."""
-    from rt.kernels.dispatch import pack_camera
-    from rt.kernels.tris_kernel import (render_color_tris,
-                                        render_color_tris_wave)
-    sd = scenes.scene_suzanne(64, 32)
-    cam_row = pack_camera(sd.camera)
-    t = jnp.uint32(1000).reshape(1, 1)
-    common = dict(height=32, width=64, height_pad=32, width_pad=256,
-                  bounces=3, normalize_defocus_dir=True,
-                  normalize_reflect_in=False, th=32, tw=256, chunk=32,
-                  unroll=4, interpret=True)
+@pytest.mark.parametrize("builder", [scenes.scene_sphere_simple,
+                                     scenes.scene_sphere_cover,
+                                     scenes.scene_suzanne])
+def test_block_shape_bit_identical(builder):
+    """The block shape only regroups rays: per-ray arithmetic is the same
+    and the per-block chunk culling is conservative, so every block renders
+    the same image bit for bit (the sweep on the card compares speed only).
+    Compared as u32 bit patterns."""
+    from rt.kernels import dispatch
+    sd = builder(W, H)
+    cfg = dataclasses.replace(sd.config, bounces=3)
+    t = jnp.uint32(1000)
     bits = lambda x: np.asarray(x).view(np.uint32)
-    a = render_color_tris_wave(sd.scene, cam_row, t, **common)
-    b = render_color_tris_wave(sd.scene, cam_row, t, sub=sub, **common)
-    np.testing.assert_array_equal(bits(a), bits(b))
-    ma = render_color_tris(sd.scene, cam_row, t, **common)
-    mb = render_color_tris(sd.scene, cam_row, t, sub=sub, **common)
-    np.testing.assert_array_equal(bits(ma), bits(mb))
-
-
-@pytest.mark.parametrize("kw", [
-    dict(key_mode="chunk_oct", sort_every=2),
-    dict(key_mode="morton", sort_every=1),
-    dict(key_mode="chunk_oct", sort_every=2, spp=2),
-    dict(key_mode="chunk_oct", sort_every=1, sky_from_final_dir=True),
-])
-def test_lean_sort_bit_identical(kw):
-    """The lean coherence-sort payload (r5b) drops the two redundant
-    operands — `active` is rebuilt from the sorted key (0xFFFFFFFF iff
-    dead, every key_mode), and the sky factor is applied after the
-    pixel-order restore (elementwise ops commute with permutations) —
-    so the rendered planes are BIT-IDENTICAL to the full 14-operand
-    payload.  Compared as u32 bit patterns (padding holds NaNs)."""
-    from rt.kernels.dispatch import pack_camera
-    from rt.kernels.tris_kernel import render_color_tris_wave
-    sd = scenes.scene_suzanne(64, 32)
-    cam_row = pack_camera(sd.camera)
-    t = jnp.uint32(1000).reshape(1, 1)
-    common = dict(height=32, width=64, height_pad=32, width_pad=256,
-                  bounces=4, normalize_defocus_dir=True,
-                  normalize_reflect_in=False, th=8, tw=256, chunk=32,
-                  unroll=4, interpret=True, **kw)
-    bits = lambda x: np.asarray(x).view(np.uint32)
-    a = render_color_tris_wave(sd.scene, cam_row, t, lean=False, **common)
-    b = render_color_tris_wave(sd.scene, cam_row, t, lean=True, **common)
+    a = k_render(sd.scene, sd.camera, cfg, t, interpret=True)
+    old = dispatch.BLOCK
+    try:
+        dispatch.BLOCK = (8, 16, 4)
+        b = k_render(sd.scene, sd.camera, cfg, t, interpret=True)
+    finally:
+        dispatch.BLOCK = old
     np.testing.assert_array_equal(bits(a), bits(b))
 
 
-def test_solo_bounce0_bit_identical():
-    """Phase-shifting the spp>1 per-sample schedule (solo_bounce0 — a
-    measured-negative knob kept for A/B, PERF.md r5b) regroups tiles but
-    never changes per-ray math: bit-identical on tie-free scenes."""
-    from rt.kernels.dispatch import pack_camera
-    from rt.kernels.tris_kernel import render_color_tris_wave
-    sd = scenes.scene_suzanne(64, 32)
+def test_row_band_equals_full_frame_rows():
+    """A launch with row0 covers rows [row0, row0 + band) of the image with
+    bit-identical rays — the property the row-band sharding
+    (rt/dist/bands.py) rests on."""
+    from rt.kernels.dispatch import block_grid, pack_camera
+    from rt.kernels.tris_kernel import render_color_tris
+    sd = scenes.scene_suzanne(W, H)
     cam_row = pack_camera(sd.camera)
     t = jnp.uint32(1000).reshape(1, 1)
-    common = dict(height=32, width=64, height_pad=32, width_pad=256,
-                  bounces=4, normalize_defocus_dir=True,
-                  normalize_reflect_in=False, th=8, tw=256, chunk=32,
-                  unroll=4, interpret=True, key_mode="chunk_oct",
-                  sort_every=2, spp=2)
-    bits = lambda x: np.asarray(x).view(np.uint32)
-    a = render_color_tris_wave(sd.scene, cam_row, t, **common)
-    b = render_color_tris_wave(sd.scene, cam_row, t, solo_bounce0=True,
-                               **common)
-    np.testing.assert_array_equal(bits(a), bits(b))
+    common = dict(height=H, width=W, bounces=3, normalize_defocus_dir=True,
+                  normalize_reflect_in=False, interpret=True)
+    full = np.asarray(render_color_tris(sd.scene, cam_row, t, **common,
+                                        **block_grid(H, W)))
+    band = np.asarray(render_color_tris(sd.scene, cam_row, t, row0=12,
+                                        **common, **block_grid(8, W)))
+    np.testing.assert_array_equal(band[:, :8, :W], full[:, 12:20, :W])

@@ -6,7 +6,7 @@ This suite runs on CPU (conftest forces the host platform), so the guard
 uses the pure-JAX oracle at a reduced resolution with a deliberately loose
 bound: it exists to catch order-of-magnitude regressions (an accidental
 de-vectorization, a gather slipping into the hot loop), not to benchmark.
-Real-chip numbers live in PERF.md / BENCH_r*.json / TPUCHECK_r*.json.
+GPU numbers live in PERF.md (from chip_smoke.py and bench.py runs).
 """
 
 import time

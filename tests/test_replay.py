@@ -1,4 +1,4 @@
-"""Path-replay backprop tests (rt/grad/replay.py — the TPU-fast
+"""Path-replay backprop tests (rt/grad/replay.py — the fast
 differentiable path): recorder parity, replay-forward parity, and gradient
 equality with the full differentiable renderer at the recording point."""
 
@@ -79,36 +79,34 @@ def test_record_pallas_matches_oracle_triangles():
     t = jnp.uint32(1000)
     color, hits = record_hits_pallas(sd.scene, sd.camera, sd.config, t,
                                      interpret=True)
-    cfg_m = dataclasses.replace(sd.config, backend="pallas_mono")
-    kcolor = k_render(sd.scene, sd.camera, cfg_m, t, interpret=True)
+    kcolor = k_render(sd.scene, sd.camera, sd.config, t, interpret=True)
     np.testing.assert_array_equal(np.asarray(color), np.asarray(kcolor))
     _, ohits = record_hits_oracle(sd.scene, sd.camera, sd.config, t)
     agree = (np.asarray(hits) == np.asarray(ohits)).mean()
     assert agree > 0.95, f"hit-id agreement {agree:.3f}"
 
 
-def test_record_pallas_wave_matches_mono():
-    """The wavefront recorder (large-mesh path) agrees with the monolithic
-    recorder: bit-identical color (the wave==mono invariant extends to the
-    recording variants) and the same hit-id streams up to measure-zero
-    cross-chunk exact-t ties (none on this scene)."""
-    sd = _cfg(scenes.scene_cube(W, H), bounces=3)
+def test_record_pallas_nonaligned_resolution():
+    """The recorder pads to whole blocks and crops color and hit ids back
+    to the image; its color equals the render kernel's exactly."""
+    from rt.kernels.dispatch import render_color as k_render
+    sd = _cfg(scenes.scene_cube(60, 28), bounces=3)
     t = jnp.uint32(1000)
-    c_m, i_m = record_hits_pallas(sd.scene, sd.camera, sd.config, t,
-                                  interpret=True, tris_backend="mono")
-    c_w, i_w = record_hits_pallas(sd.scene, sd.camera, sd.config, t,
-                                  interpret=True, tris_backend="wave")
-    np.testing.assert_array_equal(np.asarray(c_w), np.asarray(c_m))
-    np.testing.assert_array_equal(np.asarray(i_w), np.asarray(i_m))
+    color, hits = record_hits_pallas(sd.scene, sd.camera, sd.config, t,
+                                     interpret=True)
+    assert color.shape == (28, 60, 3) and hits.shape == (3, 28, 60)
+    kcolor = k_render(sd.scene, sd.camera, sd.config, t, interpret=True)
+    np.testing.assert_array_equal(np.asarray(color), np.asarray(kcolor))
 
 
 def test_replay_from_wave_record_matches_forward():
-    """Replaying the WAVE-recorded hit stream reproduces the kernel color —
-    the end-to-end contract the large-mesh differentiable path rests on."""
+    """Replaying the kernel-recorded hit stream of a triangle scene
+    reproduces the kernel color — the end-to-end contract the
+    differentiable mesh path rests on."""
     sd = _cfg(scenes.scene_cube(W, H), bounces=2)
     t = jnp.uint32(1000)
     color, hits = record_hits_pallas(sd.scene, sd.camera, sd.config, t,
-                                     interpret=True, tris_backend="wave")
+                                     interpret=True)
     img = replay_color(sd.scene, sd.camera, sd.config, t, hits)
     np.testing.assert_allclose(np.asarray(img), np.asarray(color),
                                atol=2e-5, rtol=0)
@@ -148,7 +146,7 @@ def test_replay_frozen_geometry_equals_in_graph():
 
 
 def test_gather_rows_bit_equal_to_native():
-    """The MXU one-hot gather (rt/grad/gather.py) is bit-equal to table[idx]
+    """The one-hot matmul gather (rt/grad/gather.py) is bit-equal to table[idx]
     — single-block and blocked (lax.map) paths."""
     from rt.grad.gather import gather_rows
     rng = np.random.default_rng(7)
@@ -165,7 +163,7 @@ def test_gather_rows_nonfinite_rows_stay_isolated():
     """A NaN/Inf entry in the table must only reach rows that SELECT it —
     the native-gather semantics.  The naive one-hot matmul would poison the
     whole column (0.0 * NaN = NaN); this is reachable via the BVH build's
-    NaN normals for degenerate triangles (ADVICE r2, rt/grad/gather.py)."""
+    NaN normals for degenerate triangles (rt/grad/gather.py)."""
     from rt.grad.gather import gather_rows
     rng = np.random.default_rng(11)
     table = np.asarray(rng.standard_normal((20, 5)), np.float32)
@@ -203,7 +201,7 @@ def test_gather_rows_grad_is_scatter_add():
 @pytest.mark.parametrize("builder,bounces", [
     (scenes.test_scene_metal, 3), (scenes.scene_cube, 2)])
 def test_replay_onehot_equals_take(builder, bounces):
-    """gather_mode='onehot' (MXU matmul rows) is bit-equal to 'take' (XLA
+    """gather_mode='onehot' (one-hot matmul rows) is bit-equal to 'take' (XLA
     gather) in the replay forward, and their gradients agree."""
     sd = _cfg(builder(W, H), bounces=bounces)
     t = jnp.uint32(1000)
@@ -466,7 +464,7 @@ def test_fit_replay_loss_weight():
     """loss_weight=ones reproduces the unweighted loop exactly; a mask
     confined to the left half still recovers the albedo (interiors
     identify it) — the edge-downweighted polish mode of the config-5
-    pipeline (tools/exp_config5_pose.py)."""
+    pipeline."""
     import dataclasses
 
     import numpy as np

@@ -144,18 +144,18 @@ def test_orbit_params_roundtrip():
 
 @pytest.mark.slow
 def test_suzanne_lp_config5_pipeline():
-    """BASELINE config 5 at MESH scale, end-to-end in the suite (VERDICT r4
-    item 6): the full tools/exp_config5_pose.py recipe on a low-poly Suzanne
+    """BASELINE config 5 at MESH scale, end-to-end in the suite: the full
+    soft-pose + replay-albedo recipe on a low-poly Suzanne
     flagship scene (225-face suzanne_lp in the scene_tris.rs:119-159 room,
     all three material kinds) small enough for CPU —
 
       1. exact 4-spp target + same-seed 1-spp observation at the true pose;
       2. orbit-coordinate perturbation (dtheta 2 deg, dphi 1 deg,
-         dfov 0.02 rad — the tool's full-scale setup);
+         dfov 0.02 rad — the full-scale setup);
       3. soft pose stage: annealed orbit recovery with the image-GRADIENT
-         loss, pooled-uv full-res rays, and grad_pool=2 (the hand-tuned
-         pipeline elements PERF.md r4 lists — this test is what keeps them
-         from regressing silently), then a short full-res refinement;
+         loss, pooled-uv full-res rays, and grad_pool=2 (hand-tuned
+         pipeline elements — this test is what keeps them from regressing
+         silently), then a short full-res refinement;
       4. edge-downweighted replay albedo polish at the recovered pose
          against the seed-matched observation.
 
@@ -245,7 +245,7 @@ def test_suzanne_lp_config5_pipeline():
 def test_cube_orbit_recovery_from_exact_target():
     """Orbit-coordinate pose recovery (theta/phi/fov, radius pinned) on the
     cube against the exact renderer — the unit-scale config-5 camera
-    clause (tools/exp_config5_pose.py runs the Suzanne full-scale form)."""
+    clause."""
     from rt.grad.soft_tris import OrbitParams, recover_orbit_tris
     from rt.render.renderer import render_color
 
